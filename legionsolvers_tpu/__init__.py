@@ -1,4 +1,4 @@
-"""legionsolvers_tpu — a TPU-native distributed sparse iterative solver library.
+"""legionsolvers_tpu — a distributed sparse iterative solver library in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 dzhang314/LegionSolvers (see SURVEY.md): deferred scalars, block-sharded

@@ -6,7 +6,8 @@ GMRES(10)), grid sizes ``-nx -ny -nz``, pieces ``-vp``, iterations ``-it``,
 and the reference's block-system stress setup (2 sol/rhs spaces with the
 matrix registered twice, BenchmarkStencil.cpp:201-207) via ``--block``.
 Prints "Achieved X ms per iteration" like the reference (:255-262) plus
-nnz/s and the fraction of the measured streaming roofline.
+nnz/s, the device it ran on, and — given ``--bw`` — the fraction of the
+streaming roofline.
 
 Usage:  python -m legionsolvers_tpu.benchmark -dim 2 -nx 4096 -ny 4096 -it 200
 """
@@ -41,14 +42,9 @@ def build_planner(args, mesh, options):
 
     planner = SquarePlanner(mesh=mesh, options=options)
     num_spaces = 2 if args.block else 1
-    # grid-native vector storage when the Pallas view is active: avoids
-    # 1-D<->N-D relayout copies at every operator boundary.  1-D problems
-    # use the operator's [rows, C] VIEW as the layout: flat [n] arrays
-    # made GMRES's basis algebra ~2.5x slower than the 2-D layouts
-    gs = shape if op.uses_pallas else None
-    if gs is not None and nd == 1 and getattr(op, "_view", None):
-        C = op._view["C"]
-        gs = (n // C, C)
+    # grid-native vector storage when the grid view is active: avoids
+    # 1-D<->N-D relayout copies at every operator boundary
+    gs = shape if op.uses_grid_view else None
     for i in range(num_spaces):
         sol = PartitionedVector(f"sol{i}", part, mesh=mesh, options=options,
                                 grid_shape=gs)
@@ -66,13 +62,37 @@ def build_planner(args, mesh, options):
     return planner, n * num_spaces, nnz
 
 
+def card_line() -> str:
+    """``name, power.limit`` of the GPUs as nvidia-smi reports them (a child
+    process that stays off JAX), or why it could not be read."""
+    import subprocess
+
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60,
+        ).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi unavailable ({e})"
+
+
+def device_info() -> dict:
+    """The device every result is attributed to, as JAX reports it."""
+    d = jax.devices()[0]
+    return {"platform": d.platform, "kind": d.device_kind,
+            "count": len(jax.devices())}
+
+
 def main(argv=None, bw=None):
     """Run one benchmark config; returns a metrics dict (and prints the
     reference-style "Achieved X ms per iteration" line).  ``bw``: optional
-    pre-measured stream bandwidth in bytes/s (skips the probe)."""
+    stream bandwidth in bytes/s measured on the same device, for the
+    roofline fraction."""
     from . import BiCGStabSolver, CGSolver, GMRESSolver, SolverOptions
     from .parallel.mesh import make_mesh
-    from .utils.timing import marginal_seconds_per_iter, measure_stream_bandwidth
+    from .utils.compile_cache import enable_compile_cache
+    from .utils.timing import marginal_seconds_per_iter
 
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("-dim", type=int, default=2, choices=[1, 2, 3, 4])
@@ -80,9 +100,9 @@ def main(argv=None, bw=None):
                    help="1=CG 2=BiCGStab 3=GMRES(restart) 4=PCG+Jacobi "
                    "(beyond-reference: the reference implements no "
                    "preconditioner, README.md:31)")
-    p.add_argument("-nx", type=int, default=4096)
-    p.add_argument("-ny", type=int, default=4096)
-    p.add_argument("-nz", type=int, default=256)
+    p.add_argument("-nx", type=int, default=None)
+    p.add_argument("-ny", type=int, default=None)
+    p.add_argument("-nz", type=int, default=None)
     p.add_argument("-vp", type=int, default=1, help="pieces (mesh shards)")
     p.add_argument("-it", type=int, default=200, help="timed iterations")
     p.add_argument("-restart", type=int, default=10, help="GMRES restart")
@@ -91,15 +111,24 @@ def main(argv=None, bw=None):
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64", "bfloat16"])
     p.add_argument("--bw", type=float, default=None,
-                   help="pre-measured stream bandwidth (bytes/s): skips "
-                   "the probe (used by subprocess harnesses)")
+                   help="stream bandwidth (bytes/s) measured on the same "
+                   "device: enables the roofline fraction")
     p.add_argument("--consume-rhs", action="store_true",
                    help="CG max-size mode: 3 live vectors — the rhs buffer "
                    "is donated through r and re-filled between runs "
                    "(reference 2^30 1-node parity, bench_all_ls.py:366-379)")
     args = p.parse_args(argv)
+    # unset extents default to n = 2^24 unknowns for every dim: 2^24,
+    # 4096^2, 256^3 (the reference's per-GPU size class)
+    default = {1: (1 << 24,), 2: (4096, 4096), 4: (256, 256, 256)}
+    default[3] = default[4]
+    for name, d in zip(("nx", "ny", "nz"), default[args.dim] + (1, 1)):
+        if getattr(args, name) is None:
+            setattr(args, name, d)
     if bw is None:
         bw = args.bw
+    enable_compile_cache()
+    device = device_info()
 
     options = SolverOptions(entry_dtype=jnp.dtype(args.dtype))
     mesh = make_mesh(args.vp) if args.vp > 1 else None
@@ -122,10 +151,6 @@ def main(argv=None, bw=None):
     print(f"[bench] schedule: {schedule} "
           f"({bytes_per_iter / n:.0f} B/unknown/iter)", file=sys.stderr)
 
-    # the roofline probe streams 3 x 256 MB arrays hundreds of times — only
-    # meaningful (and affordable) on the accelerator backend
-    if bw is None and jax.default_backend() == "tpu":
-        bw = measure_stream_bandwidth()
     if bw is not None:
         print(f"[bench] measured stream bandwidth: {bw/1e9:.0f} GB/s",
               file=sys.stderr)
@@ -179,51 +204,12 @@ def main(argv=None, bw=None):
         f"dtype={args.dtype}: residual2[{args.it}]={hist[-1]:.4g}",
         file=sys.stderr,
     )
-    pct = None
-    binding = "stream"
-    if bw is not None:
-        sol_ms = bytes_per_iter / bw * 1e3
-        # s-step schedule: the binding roofline is max(stream, compute) —
-        # see PROFILE_r03.md and utils/roofline.py's VPU model
-        if schedule.startswith("fused2d_x2"):
-            from .utils import vpu_probe
-            from .utils.roofline import sstep_compute_seconds_per_iteration
-
-            rates = vpu_probe.load_or_measure()
-            op0 = planner.row_partitioned_matrices[0][0]
-            view = getattr(op0, "_view", None)
-            if rates is not None and view is not None:
-                comp_ms = sstep_compute_seconds_per_iteration(
-                    view["offs"], view["vals"], n, rates
-                ) * 1e3
-                # an estimate the kernel already BEAT is un-tight —
-                # discard rather than report a >100% "roofline" (same
-                # rule as bench.py)
-                if ms < comp_ms:
-                    pass
-                elif comp_ms > sol_ms:
-                    sol_ms, binding = comp_ms, "compute"
-        pct = 100 * sol_ms / ms
-    roofline = (f", {pct:.1f}% of {binding} roofline"
-                if pct is not None else "")
+    pct = None if bw is None else 100 * (bytes_per_iter / bw) / sec_per_iter
+    roofline = f", {pct:.1f}% of stream roofline" if pct is not None else ""
     print(f"Achieved {ms:.6f} ms per iteration "
-          f"({nnz / sec_per_iter / 1e9:.2f} Gnnz/s{roofline})")
-    import json
-    import os as _os
-
-    if _os.environ.get("LEGIONSOLVERS_BENCH_JSON"):
-        # machine-readable row for subprocess harnesses (bench_matrix runs
-        # each config in its own process: a crashed/OOMed config poisons
-        # the TPU client for the rest of the process)
-        print("BENCH_JSON " + json.dumps({
-            "dim": args.dim, "solver": names[args.solver], "n": n,
-            "nnz": nnz, "pieces": args.vp, "dtype": args.dtype,
-            "ms_per_iter": ms, "gnnz_per_s": nnz / sec_per_iter / 1e9,
-            "schedule": schedule, "bytes_per_unknown": bytes_per_iter / n,
-            "pct_roofline": pct, "roofline_binding": binding,
-            "final_residual2": float(hist[-1]),
-        }))
-    return {
+          f"({nnz / sec_per_iter / 1e9:.2f} Gnnz/s{roofline}) on "
+          f"{device['count']} x {device['kind']} ({device['platform']})")
+    result = {
         "dim": args.dim,
         "solver": names[args.solver],
         "n": n,
@@ -235,9 +221,18 @@ def main(argv=None, bw=None):
         "schedule": schedule,
         "bytes_per_unknown": bytes_per_iter / n,
         "pct_roofline": pct,
-        "roofline_binding": binding,
         "final_residual2": float(hist[-1]),
+        "device": device,
     }
+    import json
+    import os as _os
+
+    if _os.environ.get("LEGIONSOLVERS_BENCH_JSON"):
+        # machine-readable row for subprocess harnesses (bench_matrix runs
+        # each config in its own process, so one that runs out of device
+        # memory cannot take the others with it)
+        print("BENCH_JSON " + json.dumps(result))
+    return result
 
 
 if __name__ == "__main__":

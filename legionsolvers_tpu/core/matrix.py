@@ -1,6 +1,6 @@
 """Sparse matrix operators: abstract interface + COO and CSR containers.
 
-TPU-native analog of the reference's operator hierarchy
+JAX analog of the reference's operator hierarchy
 (reference: AbstractLinearOperator.hpp:9-22, AbstractMatrix.hpp:14-59,
 COOMatrix.cpp, CSRMatrix.cpp).  The reference keeps matrices in Legion
 regions and derives kernel/ghost partitions at runtime with dependent

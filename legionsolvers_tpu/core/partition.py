@@ -1,10 +1,10 @@
 """Block partitions and dependent-partition derivations (host side).
 
-TPU-native replacement for Legion dependent partitioning.  The reference
+JAX replacement for Legion dependent partitioning.  The reference
 derives matrix (kernel) partitions and ghost (domain) partitions at runtime
 with ``create_partition_by_preimage[_range]`` / ``create_partition_by_image``
 over the row/col fields of the sparse matrix (reference: COOMatrix.cpp:57-141,
-CSRMatrix.cpp:68-155).  On TPU there is no runtime partitioner: all of these
+CSRMatrix.cpp:68-155).  Under JAX there is no runtime partitioner: all of these
 index sets are computed once, on the host, with numpy, at matrix-build time,
 and baked into static per-shard arrays + a static halo-exchange schedule.
 
@@ -14,7 +14,7 @@ tests (test_all.py:19-127).
 
 Partition model: a :class:`BlockPartition` splits ``[0, n)`` into
 ``num_pieces`` contiguous blocks.  Unlike Legion's ``create_equal_partition``
-(which gives blocks whose sizes differ by at most one), TPU SPMD wants equal
+(which gives blocks whose sizes differ by at most one), SPMD sharding wants equal
 per-device blocks, so we pad ``n`` up to a multiple of ``num_pieces`` and give
 every piece exactly ``block_size`` slots; slots ``>= n`` are padding.  For
 sizes divisible by the piece count (all the reference's golden cases) the two
@@ -94,7 +94,7 @@ def kernel_partition_from_range(
 ) -> List[np.ndarray]:
     """Partition the nonzero (kernel) space by row ownership.
 
-    TPU-native equivalent of ``create_partition_by_preimage`` on the row field
+    JAX equivalent of ``create_partition_by_preimage`` on the row field
     (reference: COOMatrix.cpp:77-95): piece ``p`` owns exactly the nonzeros
     whose row lands in piece ``p`` of the range partition.  Returns, per
     piece, the sorted array of kernel (nonzero) indices.
@@ -112,7 +112,7 @@ def domain_partition_from_kernel(
 ) -> List[np.ndarray]:
     """Ghost partition: the columns each kernel piece touches.
 
-    TPU-native equivalent of ``create_partition_by_image`` on the col field
+    JAX equivalent of ``create_partition_by_image`` on the col field
     (reference: COOMatrix.cpp:98-118).  The result is *aliased* (pieces
     overlap at block boundaries — the golden overlap visible in
     test_all.py:27-48): piece ``p`` is the set of source-vector entries that

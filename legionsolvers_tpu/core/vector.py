@@ -1,6 +1,6 @@
 """Distributed (block-sharded) vectors.
 
-TPU-native analog of the reference's ``PartitionedVector<T>``
+JAX analog of the reference's ``PartitionedVector<T>``
 (reference: PartitionedVector.hpp:13-134, PartitionedVector.cpp).  Where the
 reference owns a Legion logical region + disjoint/complete index partition and
 issues index launches per op, a :class:`PartitionedVector` here owns one
@@ -58,8 +58,7 @@ class PartitionedVector:
         """``grid_shape``: optional N-D layout for the vector's data.  For
         grid (stencil) problems, storing the vector in its natural grid shape
         — sharded over the leading axis — avoids 1-D<->N-D relayout copies at
-        every operator boundary (TPU layouts for 1-D and N-D views of the
-        same values differ physically).  Requires prod(grid_shape) ==
+        every operator boundary.  Requires prod(grid_shape) ==
         padded_size == n (no padding) and grid_shape[0] divisible by the
         piece count.  All BLAS-1 ops are elementwise, so they are
         shape-agnostic; only fills and host transfers special-case."""

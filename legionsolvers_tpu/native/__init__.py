@@ -1,6 +1,6 @@
 """Native host-side runtime components (C++ via ctypes).
 
-The TPU compute path is JAX/XLA/Pallas; this package is the native runtime
+The device compute path is JAX/XLA/Pallas; this package is the native runtime
 *around* it — the analog of the reference's C++ fill tasks and dependent
 partitioning (reference: StencilGenerator.cpp, ExampleSystems.cpp:250-470,
 COOMatrix.cpp:57-141).  The shared library is built on first use with the

@@ -214,9 +214,8 @@ def rcm_permutation(n, rows, cols):
     banded (the scipy reverse_cuthill_mckee convention).  Native BFS with
     George-Liu pseudo-peripheral starts; scipy.sparse.csgraph fallback.
 
-    This is build-time machinery for the TPU's no-fast-gather reality: the
-    planner reorders general sparse systems into banded form and solves in
-    the permuted basis (parallel/reorder.py)."""
+    The planner uses it to reorder general sparse systems into banded form
+    and solve in the permuted basis (parallel/reorder.py)."""
     rows = np.ascontiguousarray(rows, np.int64)
     cols = np.ascontiguousarray(cols, np.int64)
     lib = _get()

@@ -1,6 +1,6 @@
 // Native host-side kernels for legionsolvers_tpu.
 //
-// TPU-native analog of the reference's C++ fill tasks and dependent
+// JAX analog of the reference's C++ fill tasks and dependent
 // partitioning machinery (reference: src/StencilGenerator.cpp fill bodies,
 // src/ExampleSystems.cpp:250-470, and the preimage/image partition
 // computations in COOMatrix.cpp:57-141).  The device compute path is
@@ -282,15 +282,13 @@ void dia_accumulate_f64(
 // ---------------------------------------------------------------------------
 // Reverse Cuthill-McKee ordering of the symmetrized sparsity pattern.
 //
-// The TPU has no fast arbitrary gather (see ops/pallas/dia2d.py), so the
-// device-side answer to *general* sparsity is to make the matrix banded at
-// BUILD time: solve (P A P^T)(P x) = P b in the reordered basis (Krylov
+// The planner's answer to *general* sparsity is to make the matrix banded
+// at BUILD time: solve (P A P^T)(P x) = P b in the reordered basis (Krylov
 // iterations are orthogonal-similarity invariant) and permute only at the
 // solve boundaries.  This routine computes P: George-Liu pseudo-peripheral
 // start nodes, BFS with neighbors visited in increasing-degree order, final
 // order reversed; handles disconnected graphs.  The reference never needs
-// this — cuSPARSE SpMV gathers at full speed (CSRMatrixTasks.cu:14-156) —
-// which is exactly why the TPU build must own it.
+// this — it hands all sparsity to cuSPARSE (CSRMatrixTasks.cu:14-156).
 //
 // perm_out[i] = original index of the node placed at position i (the
 // scipy.sparse.csgraph.reverse_cuthill_mckee convention).

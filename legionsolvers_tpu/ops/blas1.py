@@ -1,6 +1,6 @@
 """BLAS-1 kernels over padded, block-sharded 1-D arrays.
 
-TPU-native analog of the reference's ``LinearAlgebraTasks`` leaf tasks
+JAX analog of the reference's ``LinearAlgebraTasks`` leaf tasks
 (reference: LinearAlgebraTasks.hpp:11-52, LinearAlgebraTasks.cpp:16-175 CPU;
 LinearAlgebraTasks.cu:15-238 cuBLAS).  Where the reference index-launches one
 leaf task per vector piece, here each op is a plain jnp expression over a
@@ -41,7 +41,7 @@ def xpay(y: jnp.ndarray, alpha, x: jnp.ndarray) -> jnp.ndarray:
 def dot(x: jnp.ndarray, y: jnp.ndarray) -> jnp.ndarray:
     """Return <x, y> as a 0-d array (reference: DotTask + future sum-reduction,
     LinearAlgebraTasks.cpp:147-175, PartitionedVector.cpp:337-358).  Under
-    SPMD this lowers to per-shard partial dots + an all-reduce over ICI.
+    SPMD this lowers to per-shard partial dots + an all-reduce.
     Shape-agnostic (vectors may be stored in grid layout)."""
     return jnp.sum(x * y, dtype=x.dtype)
 

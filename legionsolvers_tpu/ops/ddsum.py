@@ -1,30 +1,27 @@
-"""Compensated (two-float / double-float) reductions — the TPU-native f64.
+"""Compensated (two-float / double-float) reductions for f32 solves.
 
-The reference runs f64 end-to-end on hardware with native f64 ALUs
-(reference: test_all.py:130-133 pins f64 goldens; V100s execute the CUDA
-leaf tasks in double).  The v5e has no f64, and round 3 measured the
-consequence (PROFILE_r03.md "BiCGStab at scale in f32"): rho = <r~, r> is a
-catastrophically cancelling sum whose true value falls below the f32
-term-rounding noise floor (eps * sum|terms|) within 2 iterations at
-n = 16.7M, making the trajectory reduction-order chaotic.
+The reference runs f64 end-to-end (reference: test_all.py:130-133 pins f64
+goldens; its CUDA leaf tasks run in double).  In an f32 solve, rho =
+<r~, r> is a catastrophically cancelling sum whose true value can fall
+below the f32 term-rounding noise floor (eps * sum|terms|) within a few
+iterations at n = 16.7M, making the trajectory reduction-order chaotic.
 
-The fix is classical error-free transformation (EFT) arithmetic on the VPU:
+The fix is classical error-free transformation (EFT) arithmetic:
 
 * ``two_sum``    — Knuth: s + e == a + b exactly (6 flops, no FMA needed);
 * ``two_prod``   — Dekker split: p + e == a * b exactly for f32 inputs
-  (TPU VPU exposes no fused-multiply-add through XLA, so the 17-flop
-  split form is used; an FMA-based EFT would silently degenerate to e == 0
-  because fl(a*b) - fl(a*b) rounds to zero when computed unfused);
+  (the 17-flop split form, which needs no fused multiply-add; whether the
+  compiler's FMA contraction preserves it on a given backend is checked
+  by tests/test_25_compensated.py on that backend);
 * ``dd_add``     — double-float accumulate (carries ~49 significand bits);
 * ``dd_sum`` / ``dd_dot`` — reductions carrying (hi, lo) through EVERY
   level of the tree, lowering the noise floor by ~2^25 relative to a plain
   f32 reduction.
 
-Used by the fused BiCGStab kernels (ops/pallas/bicgstab2d.py, under the
+Used by the fused BiCGStab passes (ops/grid2d.py, under the
 ``compensated`` flag) and by the solver transcriptions for rho-class dots,
 so fused and transcription paths agree at benchmark scale instead of
-splitting chaotically.  Pure jnp — the same code runs inside Pallas kernels
-and in XLA.
+splitting chaotically.  Pure jnp.
 """
 
 from __future__ import annotations
@@ -84,9 +81,8 @@ def dd_sum_2d(h, l):
     """Reduce (hi, lo) arrays of shape [R, C] to scalar (hi, lo), carrying
     the compensation through every level.
 
-    Vreg-friendly (usable inside Pallas kernels): rows fold by halving
-    (sublane slices), lanes fold first in static 128-chunks, then by lane
-    halvings — no reshapes that would force a Mosaic relayout."""
+    Rows fold by halving, columns fold first in static 128-chunks, then by
+    halvings — static slices only, no reshapes."""
     R, C = h.shape
     if C % 128 == 0 and C > 128:
         hh = h[:, :128]
@@ -114,10 +110,10 @@ def dd_sum_2d(h, l):
 def dd_dot_tile(a, b):
     """Compensated <a, b> over a 2-D tile: (hi, lo) f32 scalars.
 
-    Cost ~25 VPU ops/element (17 two_prod + 7 dd accumulation + reduction
+    Cost ~25 flops/element (17 two_prod + 7 dd accumulation + reduction
     amortization) vs ~2 for a plain f32 dot — acceptable where the pass is
-    HBM-bound, which is why the BiCGStab kernels (60 B/unknown) carry it as
-    an option while the compute-bound s-step CG kernels do not."""
+    memory-bound, which is why the BiCGStab passes (60 B/unknown) carry it
+    as an option."""
     a = a.astype(jnp.float32)
     b = b.astype(jnp.float32)
     R = a.shape[0]

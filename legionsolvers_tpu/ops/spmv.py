@@ -1,6 +1,6 @@
 """Global (single-shard / GSPMD) sparse matrix-vector products.
 
-TPU-native analog of the reference's leaf SpMV tasks
+JAX analog of the reference's leaf SpMV tasks
 (reference: COOMatrixTasks.cpp:10-75, CSRMatrixTasks.cpp:10-92 CPU;
 COOMatrixTasks.cu:12-146, CSRMatrixTasks.cu:14-156 cuSPARSE).  The reference
 accumulates into the output through a sum-reduction accessor; the jnp analog
@@ -46,8 +46,8 @@ def spmv_coo_add(rows, cols, vals, x, y):
 
 def rmatvec_coo(rows, cols, vals, x, n_domain: int) -> jnp.ndarray:
     """y = A^T @ x for COO.  The reference stubs this out
-    (COOMatrixTasks.cpp:78-83 is ``assert(false)``); on TPU the transpose
-    product is just the row/col swap, so we provide it for real."""
+    (COOMatrixTasks.cpp:78-83 is ``assert(false)``); the transpose product
+    is just the row/col swap, so we provide it for real."""
     return jnp.zeros(n_domain, dtype=x.dtype).at[cols].add(vals * x[rows])
 
 
@@ -59,8 +59,7 @@ def spmv_ell(
     """y = A @ x for ELL layout: ``ell_cols``/``ell_vals`` are [n_rows, L]
     with padded slots carrying ``vals == 0`` and any in-bounds column.
 
-    This is the vectorizable layout for the TPU VPU: a dense gather plus a
-    row reduction, no scatter.  The distributed operator stores its per-shard
+    A dense gather plus a row reduction, no scatter.  The distributed operator stores its per-shard
     local slices in this layout.
     """
     gathered = x[ell_cols]  # [n_rows, L] gather
@@ -77,8 +76,8 @@ def spmv_dia(
     ``diags[k, i]`` is A[i, i + offsets[k]] (zero where out of range).
 
     Stencil matrices are exactly banded, so this turns the irregular SpMV
-    gather into shifted elementwise multiply-adds — pure VPU work at HBM
-    speed-of-light.  The shifts are static rolls, which XLA fuses.
+    gather into shifted elementwise multiply-adds at streaming speed.  The
+    shifts are static rolls, which XLA fuses.
     """
     n = x.shape[0]
     y = jnp.zeros_like(x)

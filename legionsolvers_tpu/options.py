@@ -1,15 +1,16 @@
 """Library-wide configuration for legionsolvers_tpu.
 
-TPU-native analog of the reference's compile-time configuration
+JAX analog of the reference's compile-time configuration
 (reference: src/LibraryOptions.hpp:10-46).  Where the reference fixes entry
 types (f32/f64), index types (s32/u32/s64), a maximum dimensionality, and a
 bounds-checking flag at compile time, we express the same policy as explicit
 runtime dtype/config objects: every array in the library is created with an
 explicit dtype drawn from this module, never from jax defaults.
 
-On TPU the natural entry types are float32 and bfloat16; float64 is supported
-on the CPU backend (used by the golden-trajectory tests, which require exact
-fp64 integer arithmetic — reference: test_all.py:130-133).
+Entry types are float32 and float64 (the reference's own precision, native
+on the GPU; the golden-trajectory tests require exact fp64 integer
+arithmetic — reference: test_all.py:130-133); bfloat16 is accepted but
+untested.
 """
 
 from __future__ import annotations
@@ -21,11 +22,11 @@ import jax.numpy as jnp
 
 # Entry (matrix/vector element) dtypes supported, mirroring the reference's
 # {float, double} entry-type cross product (LibraryOptions.hpp:24-27), plus
-# bfloat16 which is the TPU-native reduced-precision type.
+# bfloat16.
 ENTRY_DTYPES = (jnp.float32, jnp.float64, jnp.bfloat16)
 
 # Index dtypes, mirroring {int32, uint32, int64} (LibraryOptions.hpp:29-33).
-# int32 is strongly preferred on TPU (native lane width).
+# int32 is preferred: half the index bytes.
 INDEX_DTYPES = (jnp.int32, jnp.int64)
 
 # Maximum problem dimensionality for stencil generators
@@ -50,11 +51,11 @@ class SolverOptions:
     entry_dtype: dtype of matrix entries and vector elements.
     index_dtype: dtype of all index arrays (rows/cols/halo schedules).
     compensated_dots: carry solver reduction scalars (rho-class dots) as
-        two-float (double-float) accumulations — the TPU-native stand-in
-        for the reference's native-f64 reductions (ops/ddsum.py; lowers the
-        f32 cancellation noise floor by ~2^25 at ~25 VPU ops/element for
-        the affected dots).  Honored by ``SquarePlanner.dot`` and the fused
-        BiCGStab kernels; defaults off because CG/GMRES carry only
+        two-float (double-float) accumulations — an f32 stand-in for the
+        reference's native-f64 reductions (ops/ddsum.py; lowers the f32
+        cancellation noise floor by ~2^25 at ~25 flops/element for the
+        affected dots).  Honored by ``SquarePlanner.dot`` and the fused
+        BiCGStab passes; defaults off because CG/GMRES carry only
         positive-definite sums that do not need it.
     """
 

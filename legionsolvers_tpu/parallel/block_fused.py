@@ -2,13 +2,7 @@
 
 The reference's benchmark *default stress config* registers the same matrix
 twice over two sol/rhs spaces (reference: BenchmarkStencil.cpp:201-207) —
-a block-diagonal system.  Through round 4 that config abandoned the Pallas
-kernel layer entirely: ``CGSolver._make_fused_runner`` bailed at
-``num_spaces != 1`` and the planner transcription ran the generic 48
-B/unknown schedule, ~3x slower than two single-space solves (r4 verdict,
-"what's weak" #1).
-
-The fix is architectural, not a new kernel: a Krylov iteration on a
+a block-diagonal system.  A Krylov iteration on a
 block-diagonal system is the SAME per-space kernel passes with the scalar
 reductions summed across spaces — every dot of a block vector is the sum of
 per-space dots, so
@@ -31,7 +25,8 @@ scalar-reduction boundaries, and drives them with one compiled loop:
   the rtv -> alpha, (ts, tt) -> omega, (rr, rtr) boundaries (mirrors
   make_fused_bicgstab_runner, including the sharded single-exchange
   edge-fixup structure);
-* jnp fallback phases (any geometry/dtype, incl. the f64 golden path).
+* classic phases for operators without the grid view (any geometry/dtype,
+  incl. the f64 golden path).
 
 Sharded spaces compose transparently: per-space phases keep their internal
 ``psum``/``ppermute`` (sum-then-psum == psum-then-sum), and the block
@@ -111,19 +106,14 @@ def _cg_jnp_phases(op):
 def _cg_2d_phases(op):
     """Two-pass fused CG phases (mirrors make_fused_cg_runner's 2-D body,
     including the sharded zero-halo overlap + dot_fixup structure)."""
-    from ..ops.pallas.stencil2d import (
-        grid2d_cg_pq,
-        grid2d_cg_update,
-        grid2d_cg_xpay_pq,
-    )
+    from ..ops.grid2d import grid2d_cg_pq, grid2d_cg_update, grid2d_cg_xpay_pq
     from .overlap import dot_fixup
 
     v, C, Br, offs, vals, rlo, rhi = _view_geom(op)
     S = op.partition.num_pieces
     sharded = S > 1
     psum = _psum_fn(sharded)
-    interpret = jax.default_backend() == "cpu"
-    kw = dict(offsets=offs, values=vals, interpret=interpret)
+    kw = dict(offsets=offs, values=vals)
     coeff = lambda k, sl: jnp.asarray(vals[k], op.options.entry_dtype)
     ph = _Phases()
     ph.grid_in = lambda a: a.reshape(Br, C) if a.ndim == 1 else a
@@ -198,23 +188,15 @@ def _cg_2d_phases(op):
 
 
 def _cg_3d_phases(op):
-    """3-D plane-streaming CG phases (mirrors _make_pallas3d_cg_runner)."""
-    from ..ops.pallas.stencil3d import (
-        grid3d_cg_pq,
-        grid3d_cg_update,
-        grid3d_cg_xpay_pq,
-        supports3d_xpay_pq,
-    )
+    """3-D grid CG phases (mirrors _make_grid3d_cg_runner)."""
+    from ..ops.grid3d import grid3d_cg_pq, grid3d_cg_update, grid3d_cg_xpay_pq
 
     v = op._view
     Y, Z, Br = v["Y"], v["Z"], v["Br"]
     S = op.partition.num_pieces
     sharded = S > 1
     psum = _psum_fn(sharded)
-    interpret = jax.default_backend() == "cpu"
-    kw = dict(offsets=v["offs3"], values=v["vals"], interpret=interpret)
-    itemsize = jnp.dtype(op.options.entry_dtype).itemsize
-    fuse_xpay = supports3d_xpay_pq(Y, Z, itemsize)
+    kw = dict(offsets=v["offs3"], values=v["vals"])
     ph = _Phases()
     ph.grid_in = lambda a: a.reshape(Br, Y, Z) if a.ndim == 1 else a
     ph.grid_out = lambda a, ref: a.reshape(ref.shape)
@@ -226,10 +208,6 @@ def _cg_3d_phases(op):
 
     def xpay_pq(r, p, beta):
         bb = beta.astype(p.dtype)
-        if not fuse_xpay:
-            p = r + bb * p
-            pq, ctx = prologue(p)
-            return p, pq, ctx
         rt, rb = op._exchange_planes3d(r, sharded=sharded)
         pt, pb = op._exchange_planes3d(p, sharded=sharded)
         pn_t = rt + bb * pt
@@ -249,11 +227,9 @@ def _cg_3d_phases(op):
 def _cg_step2_phases(op):
     """s-step CG phases (mirrors _make_step2_cg_runner: gram bootstrap,
     zero-halo step2 pass with sharded edge fixup, odd-iteration tail)."""
-    from ..ops.pallas.stencil2d import (
-        grid2d_cg_gram2,
-        grid2d_cg_step2,
-        grid2d_cg_update,
-    )
+    from ..ops.grid2d import acc_dtype, grid2d_cg_update
+    from ..ops.pallas.sstep2d import gram2 as grid2d_cg_gram2
+    from ..ops.pallas.sstep2d import step2 as grid2d_cg_step2
     from .sstep_sharded import (
         STRIP,
         exchange_halo4,
@@ -265,8 +241,7 @@ def _cg_step2_phases(op):
     v, C, Br, offs, vals, rlo, rhi = _view_geom(op)
     S = op.partition.num_pieces
     sharded = S > 1
-    interpret = jax.default_backend() == "cpu"
-    kw = dict(offsets=offs, values=vals, interpret=interpret)
+    kw = dict(offsets=offs, values=vals)
     ph = _Phases()
     ph.grid_in = lambda a: a.reshape(Br, C) if a.ndim == 1 else a
     ph.grid_out = lambda a, ref: a.reshape(ref.shape)
@@ -311,7 +286,7 @@ def _cg_step2_phases(op):
         if mb is not None:
             r = r.at[Br - mb.shape[0] :].add(-miss_alpha * mb)
         rr = jax.lax.psum(
-            jnp.sum((r * r).astype(jnp.float32)), SHARD_AXIS
+            jnp.sum((r * r).astype(acc_dtype(r.dtype))), SHARD_AXIS
         )
         return x, r, rr
 
@@ -330,7 +305,7 @@ def _bicg_jnp_phases(op):
     ph.grid_out = lambda a, ref: a.reshape(ref.shape)
 
     def ldot(a, b):
-        # entry-dtype accumulation (f64 on the golden path, f32 otherwise),
+        # entry-dtype accumulation (f64 on the golden path, acc otherwise),
         # matching the planner transcription's blas1.dot
         return psum(jnp.sum(a * b))
 
@@ -364,21 +339,19 @@ def _bicg_2d_phases(op):
     rtv -> alpha, (ts, tt) -> omega, (rr, rtr) (mirrors
     make_fused_bicgstab_runner's 2-D body including the sharded
     single-exchange derived-halo fixups)."""
-    from ..ops.pallas.bicgstab2d import bicg_pv, bicg_st, bicg_update
+    from ..ops.grid2d import acc_dtype, apply2d as _apply
+    from ..ops.grid2d import bicg_pv, bicg_st, bicg_update
     from .overlap import edge_missing
-    from .sstep_sharded import _apply
 
     v, C, Br, offs, vals, rlo, rhi = _view_geom(op)
     S = op.partition.num_pieces
     sharded = S > 1
     psum = _psum_fn(sharded)
-    interpret = jax.default_backend() == "cpu"
     compensated = bool(op.options.compensated_dots)
-    kw = dict(offsets=offs, values=vals, interpret=interpret,
-              compensated=compensated)
+    kw = dict(offsets=offs, values=vals, compensated=compensated)
     dtype = jnp.dtype(op.options.entry_dtype)
     coeff = lambda k, sl: jnp.asarray(vals[k], dtype)
-    f32 = jnp.float32
+    acc = acc_dtype(dtype)
     ph = _Phases()
     ph.grid_in = lambda a: a.reshape(Br, C) if a.ndim == 1 else a
     ph.grid_out = lambda a, ref: a.reshape(ref.shape)
@@ -411,11 +384,11 @@ def _bicg_2d_phases(op):
         return zt, zb
 
     def edge_dot(a_top, a_bot, miss_t, miss_b):
-        f = f32(0)
+        f = acc(0)
         if miss_t is not None:
-            f = f + jnp.sum((a_top * miss_t).astype(f32))
+            f = f + jnp.sum((a_top * miss_t).astype(acc))
         if miss_b is not None:
-            f = f + jnp.sum((a_bot * miss_b).astype(f32))
+            f = f + jnp.sum((a_bot * miss_b).astype(acc))
         return f
 
     def t0_edges(s_loc_t, s_loc_b):
@@ -434,8 +407,8 @@ def _bicg_2d_phases(op):
 
             return (psum(dd_dot(r.reshape(-1), r.reshape(-1))),
                     psum(dd_dot(rt.reshape(-1), r.reshape(-1))))
-        return (psum(jnp.sum((r * r).astype(f32))),
-                psum(jnp.sum((rt * r).astype(f32))))
+        return (psum(jnp.sum((r * r).astype(acc))),
+                psum(jnp.sum((rt * r).astype(acc))))
 
     def pv(r, p, vv, rt, beta, omega):
         if not sharded:
@@ -491,13 +464,13 @@ def _bicg_2d_phases(op):
         ts = psum(ts0 + edge_dot(
             s_loc_t[:rlo] if rlo else None,
             s_loc_b[-rhi:] if rhi else None, mt_t, mt_b))
-        dtt = f32(0)
+        dtt = acc(0)
         if mt_t is not None:
             dtt = dtt + jnp.sum(
-                (2.0 * t0t * mt_t + mt_t * mt_t).astype(f32))
+                (2.0 * t0t * mt_t + mt_t * mt_t).astype(acc))
         if mt_b is not None:
             dtt = dtt + jnp.sum(
-                (2.0 * t0b * mt_b + mt_b * mt_b).astype(f32))
+                (2.0 * t0b * mt_b + mt_b * mt_b).astype(acc))
         tt = psum(tt0 + dtt)
         return ts, tt, (mt_t, mt_b, t0t, t0b, s_loc_t, s_loc_b)
 
@@ -508,20 +481,20 @@ def _bicg_2d_phases(op):
         mt_t, mt_b, t0t, t0b, s_loc_t, s_loc_b = ctx
         om2 = omega.astype(dtype)
         x, r, rr0_, rtr0 = bicg_update(r, vv, x, p, rt, alpha, omega, **kw)
-        drr = f32(0)
-        drtr = f32(0)
+        drr = acc(0)
+        drtr = acc(0)
         if mt_t is not None:
             d_t = -om2 * mt_t
             r0e = s_loc_t[:rlo] - om2 * t0t
             r = r.at[:rlo].add(d_t)
-            drr = drr + jnp.sum((2.0 * r0e * d_t + d_t * d_t).astype(f32))
-            drtr = drtr + jnp.sum((rt[:rlo] * d_t).astype(f32))
+            drr = drr + jnp.sum((2.0 * r0e * d_t + d_t * d_t).astype(acc))
+            drtr = drtr + jnp.sum((rt[:rlo] * d_t).astype(acc))
         if mt_b is not None:
             d_b = -om2 * mt_b
             r0e = s_loc_b[-rhi:] - om2 * t0b
             r = r.at[Br - rhi :].add(d_b)
-            drr = drr + jnp.sum((2.0 * r0e * d_b + d_b * d_b).astype(f32))
-            drtr = drtr + jnp.sum((rt[Br - rhi :] * d_b).astype(f32))
+            drr = drr + jnp.sum((2.0 * r0e * d_b + d_b * d_b).astype(acc))
+            drtr = drtr + jnp.sum((rt[Br - rhi :] * d_b).astype(acc))
         rr = psum(rr0_ + drr)
         rtr = psum(rtr0 + drtr)
         return x, r, rr, rtr
@@ -531,17 +504,16 @@ def _bicg_2d_phases(op):
 
 
 def _bicg_3d_phases(op):
-    """3-D plane-streaming BiCGStab phases (single shard, mirrors
+    """3-D grid BiCGStab phases (single shard, mirrors
     _make_bicgstab3d_runner)."""
-    from ..ops.pallas.bicgstab3d import bicg3d_pv, bicg3d_st, bicg3d_update
+    from ..ops.grid2d import acc_dtype
+    from ..ops.grid3d import bicg3d_pv, bicg3d_st, bicg3d_update
 
     v = op._view
     Y, Z, Br = v["Y"], v["Z"], v["Br"]
-    interpret = jax.default_backend() == "cpu"
     compensated = bool(op.options.compensated_dots)
-    kw = dict(offsets=v["offs3"], values=v["vals"], interpret=interpret,
-              compensated=compensated)
-    f32 = jnp.float32
+    kw = dict(offsets=v["offs3"], values=v["vals"], compensated=compensated)
+    acc = acc_dtype(op.options.entry_dtype)
     ph = _Phases()
     ph.grid_in = lambda a: a.reshape(Br, Y, Z) if a.ndim == 1 else a
     ph.grid_out = lambda a, ref: a.reshape(ref.shape)
@@ -552,23 +524,19 @@ def _bicg_3d_phases(op):
 
             return (dd_dot(r.reshape(-1), r.reshape(-1)),
                     dd_dot(rt.reshape(-1), r.reshape(-1)))
-        return (jnp.sum((r * r).astype(f32)),
-                jnp.sum((rt * r).astype(f32)))
-
-    def zp(a):
-        return jnp.zeros((Y, Z), a.dtype)
+        return (jnp.sum((r * r).astype(acc)),
+                jnp.sum((rt * r).astype(acc)))
 
     def pv(r, p, vv, rt, beta, omega):
-        p, vv, rtv = bicg3d_pv(r, p, vv, rt, beta, omega, zp(p), zp(p), **kw)
+        p, vv, rtv = bicg3d_pv(r, p, vv, rt, beta, omega, **kw)
         return p, vv, rtv, None
 
     def st(r, vv, p, alpha, ctx):
-        ts, tt = bicg3d_st(r, vv, alpha, zp(r), zp(r), **kw)
+        ts, tt = bicg3d_st(r, vv, alpha, **kw)
         return ts, tt, None
 
     def update(r, vv, x, p, rt, alpha, omega, ctx):
-        x, r, rr, rtr = bicg3d_update(
-            r, vv, x, p, rt, alpha, omega, zp(r), zp(r), **kw)
+        x, r, rr, rtr = bicg3d_update(r, vv, x, p, rt, alpha, omega, **kw)
         return x, r, rr, rtr
 
     ph.boot, ph.pv, ph.st, ph.update = boot, pv, st, update
@@ -651,7 +619,7 @@ def _bicg_phases_for(op):
 
 def _scalar_dtype(arrs):
     """f64 systems (the golden path) carry f64 reductions/history like the
-    transcription; everything else runs the kernels' f32 scalars."""
+    transcription; everything else accumulates in f32."""
     if all(a.dtype == jnp.float64 for a in arrs):
         return jnp.float64
     return jnp.float32
@@ -774,7 +742,7 @@ def _make_block_step2_runner(ops, num_iterations: int, donate: bool):
     """s-step block CG: the per-space Gram matrices sum to the block
     system's Gram, so ``cg2_coeffs`` of the summed Gram yields the exact
     block-CG coefficients for both iterations of each pass."""
-    from ..ops.pallas.stencil2d import cg2_coeffs
+    from ..ops.grid2d import cg2_coeffs
 
     nsp = len(ops)
     phases = [_cg_step2_phases(op) for op in ops]
@@ -786,8 +754,9 @@ def _make_block_step2_runner(ops, num_iterations: int, donate: bool):
         xs = [ph.grid_in(a) for ph, a in zip(phases, xs)]
         rs = [ph.grid_in(a) for ph, a in zip(phases, rs)]
         ps = [ph.grid_in(a) for ph, a in zip(phases, ps)]
-        rr0 = jnp.asarray(rr0, jnp.float32)
-        hist = jnp.zeros(num_iterations + 1, jnp.float32).at[0].set(rr0)
+        sdt = _scalar_dtype(xs)
+        rr0 = jnp.asarray(rr0, sdt)
+        hist = jnp.zeros(num_iterations + 1, sdt).at[0].set(rr0)
 
         def gram_all(rs, ps):
             g = None
@@ -843,7 +812,7 @@ def _make_block_step2_runner(ops, num_iterations: int, donate: bool):
         xs, rs, ps = list(xs), list(rs), list(ps)
         if odd:
             alpha = g[0] / g[1]
-            rr_new = jnp.float32(0.0)
+            rr_new = sdt(0)
             for s in range(nsp):
                 xs[s], rs[s], rr_s = phases[s].odd_update(
                     ps[s], xs[s], rs[s], alpha
@@ -871,7 +840,6 @@ def make_block_bicgstab_runner(ops, num_iterations: int,
     summed across spaces before the scalar recurrences)."""
     nsp = len(ops)
     phases = [_bicg_phases_for(op) for op in ops]
-    f32 = jnp.float32
 
     def local_run(xs, rs, ps, vs, rts, rho, alpha, omega):
         refs = xs

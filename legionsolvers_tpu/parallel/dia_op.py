@@ -1,18 +1,16 @@
-"""Distributed explicit-DIA operator — the TPU fast path for explicit
-sparse matrices.
+"""Distributed explicit-DIA operator for banded explicit sparse matrices.
 
 The reference's core device compute is cuSPARSE CSR/COO SpMV over explicit
 matrices (reference: CSRMatrixTasks.cu:14-156, COOMatrixTasks.cu:12-146).
-TPUs have no efficient arbitrary gather, so the TPU-native storage for the
-banded matrices this library targets is **DIA extracted at build time**: for
-each distinct (col - row) offset, a coefficient array over the rows, zero
-where the matrix has no entry.  SpMV is then a sum of shifted elementwise
-multiplies — the variable-coefficient stencil kernel of
-``ops/pallas/dia2d.py`` — at (2 + D) * 4 B/element HBM traffic.
+For the banded matrices this library targets, **DIA extracted at build
+time** needs no index streams: for each distinct (col - row) offset, a
+coefficient array over the rows, zero where the matrix has no entry.  SpMV
+is then a sum of shifted elementwise multiplies that XLA fuses into one
+pass, at (2 + D) * itemsize bytes per row.
 
-Distribution mirrors :class:`~.stencil_op.StencilOperator`: block-row shards,
-ring ``ppermute`` halo exchange of +-8 edge rows of the [rows, C] view (or a
-gather-based halo when the bandwidth exceeds the block), coefficients
+Distribution mirrors :class:`~.stencil_op.StencilOperator`'s linearized
+path: block-row shards, ring ``ppermute`` halo exchange of the band edges
+(or a gather-based halo when the bandwidth exceeds the block), coefficients
 sharded alongside the rows (they are row-partitioned by construction, the
 analog of the reference's kernel partition, COOMatrix.cpp:77-95).
 
@@ -35,17 +33,14 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..options import SHARD_AXIS, SolverOptions, DEFAULT_OPTIONS
 from ..core.partition import BlockPartition
 
-# DIA storage/gate policy.  Per-NNZ traffic of the DIA kernel is CONSTANT
-# in the diagonal count (each stored diagonal element IS a nonzero: 4 B of
+# DIA storage/gate policy.  Per-NNZ traffic of DIA is CONSTANT in the
+# diagonal count (each stored diagonal element IS a nonzero: one
 # coefficient + amortized vector traffic), so many-diagonal BANDED matrices
-# still run at streaming speed — the round-2 hard cap of 40 diagonals was
-# the wrong gate (VERDICT r2 missing #4).  What actually makes DIA lose is
-# FILL: a diagonal with mostly zeros stores and streams dead coefficients.
-# The planner therefore upgrades to DIA when the matrix has at most
-# MAX_DIAGONALS distinct diagonals (device-memory/extraction sanity bound)
-# AND nnz / (D * padded_size) >= MIN_DIA_FILL (a 16x storage bloat cap —
-# still a massive win over the gather-based ELL fallback, which measured
-# 0.11 Gnnz/s on chip vs DIA's ~54).
+# still run at streaming speed.  What makes DIA lose is FILL: a diagonal
+# with mostly zeros stores and streams dead coefficients.  The planner
+# therefore upgrades to DIA when the matrix has at most MAX_DIAGONALS
+# distinct diagonals (device-memory/extraction sanity bound) AND
+# nnz / (D * padded_size) >= MIN_DIA_FILL (a 16x storage bloat cap).
 MAX_DIAGONALS = int(os.environ.get("LEGIONSOLVERS_DIA_MAX_DIAGS", "256"))
 MIN_DIA_FILL = float(os.environ.get("LEGIONSOLVERS_DIA_MIN_FILL", "0.0625"))
 
@@ -89,7 +84,6 @@ class DiaOperator:
         partition: BlockPartition,
         mesh: Optional[Mesh],
         options: SolverOptions = DEFAULT_OPTIONS,
-        use_pallas: Optional[bool] = None,
     ):
         if matrix.n_domain != matrix.n_range:
             raise ValueError("DiaOperator requires a square matrix")
@@ -112,85 +106,12 @@ class DiaOperator:
         self._wide_band = (
             partition.num_pieces > 1 and max(self.band_lo, self.band_hi) > B
         )
-
-        if use_pallas is None:
-            import os
-
-            use_pallas = not bool(
-                int(os.environ.get("LEGIONSOLVERS_NO_PALLAS", "0"))
-            )
-        self._view = (
-            self._plan_view(flat_coefs) if use_pallas else None
-        )
-        if self._view is None:
-            # linearized fallback keeps the flat coefficient arrays
-            sh = (
-                NamedSharding(mesh, P(None, SHARD_AXIS)) if mesh else None
-            )
-            arr = jnp.asarray(flat_coefs)
-            self.flat_coefs = jax.device_put(arr, sh) if sh else arr
+        sh = NamedSharding(mesh, P(None, SHARD_AXIS)) if mesh else None
+        arr = jnp.asarray(flat_coefs)
+        self.flat_coefs = jax.device_put(arr, sh) if sh else arr
         self._fns = {}
-        self._interpret = False
 
     # ------------------------------------------------------------------
-    def _plan_view(self, flat_coefs: np.ndarray):
-        """Decompose flat diagonals onto a [rows, C] view for the Pallas
-        kernel (the same flat-offset rewrite as
-        stencil2d.decompose_flat_offsets, but applied to the coefficient
-        arrays: each term keeps its values only where its column shift stays
-        in-row)."""
-        from ..ops.pallas.dia2d import supports_dia
-
-        if np.dtype(self.options.entry_dtype).itemsize != 4:
-            return None
-        if self._wide_band:
-            return None
-        B = self.partition.block_size
-        N = self.partition.padded_size
-        S = self.partition.num_pieces
-        for C in (4096, 2048, 1024, 512, 256, 128):
-            if B % C or (B // C) < 8:
-                continue
-            c = np.arange(N, dtype=np.int64) % C
-            offs, coefs = [], []
-            for s, a in zip(self.flat_offsets, flat_coefs):
-                q, rr = divmod(int(s), C)
-                if rr == 0:
-                    offs.append((q, 0))
-                    coefs.append(a)
-                    continue
-                in_row = (c + rr) < C
-                a1 = np.where(in_row, a, 0)
-                a2 = np.where(in_row, 0, a)
-                if a1.any():
-                    offs.append((q, rr))
-                    coefs.append(a1)
-                if a2.any():
-                    offs.append((q + 1, rr - C))
-                    coefs.append(a2)
-            Br = B // C
-            if not supports_dia(Br, C, offs, len(offs)):
-                continue
-            diags = np.stack(coefs).reshape(len(offs), S * Br, C)
-            sh = (
-                NamedSharding(self.mesh, P(None, SHARD_AXIS, None))
-                if self.mesh
-                else None
-            )
-            arr = jnp.asarray(diags, dtype=self.options.entry_dtype)
-            return {
-                "C": C,
-                "Br": Br,
-                "offs": tuple(offs),
-                "diags": jax.device_put(arr, sh) if sh else arr,
-            }
-        return None
-
-    # ------------------------------------------------------------------
-    @property
-    def uses_pallas(self) -> bool:
-        return self._view is not None
-
     @property
     def supports_matvec_dot(self) -> bool:
         return self.partition.num_pieces == 1 or self.mesh is not None
@@ -207,74 +128,9 @@ class DiaOperator:
         return self.matrix.n_kernel
 
     # ------------------------------------------------------------------
-    def _pallas_local(self, x_loc, diags, *, sharded: bool, with_dot: bool):
-        from ..ops.pallas.dia2d import dia2d_matvec
-
-        v = self._view
-        C, Br, offs = v["C"], v["Br"], v["offs"]
-        S = self.partition.num_pieces
-        rlo = max(0, -min(dy for dy, _ in offs))
-        rhi = max(0, max(dy for dy, _ in offs))
-        xg = x_loc.reshape(Br, C)
-        dtype = xg.dtype
-        top = jnp.zeros((8, C), dtype)
-        bot = jnp.zeros((8, C), dtype)
-        if sharded and S > 1:
-            if rlo > 0:
-                t = jax.lax.ppermute(
-                    xg[Br - rlo :], SHARD_AXIS,
-                    [(i, (i + 1) % S) for i in range(S)],
-                )
-                t = jnp.where(
-                    jax.lax.axis_index(SHARD_AXIS) == 0, jnp.zeros_like(t), t
-                )
-                top = top.at[8 - rlo :, :].set(t)
-            if rhi > 0:
-                h = jax.lax.ppermute(
-                    xg[:rhi], SHARD_AXIS, [(i, (i - 1) % S) for i in range(S)]
-                )
-                h = jnp.where(
-                    jax.lax.axis_index(SHARD_AXIS) == S - 1,
-                    jnp.zeros_like(h), h,
-                )
-                bot = bot.at[:rhi, :].set(h)
-        if sharded and S > 1 and (rlo or rhi):
-            # overlap: zero-halo kernel pass (independent of the ppermutes)
-            # + edge fixup with the per-row DIA coefficients — see
-            # parallel/overlap.py
-            from .overlap import apply_edge_fixup, dot_fixup
-
-            zero = jnp.zeros((8, C), dtype)
-            out = dia2d_matvec(
-                xg, zero, zero, diags, offsets=offs, with_dot=with_dot,
-                interpret=self._interpret,
-            )
-            coeff = lambda k, sl: diags[k, sl, :]
-            if with_dot:
-                y, part = out
-                part = part + dot_fixup(xg, offs, top, bot, coeff)
-            else:
-                y = out
-            y = apply_edge_fixup(y, offs, top, bot, coeff)
-            if with_dot:
-                part = jax.lax.psum(part, SHARD_AXIS)
-                return y.reshape(-1), part
-            return y.reshape(-1)
-
-        out = dia2d_matvec(
-            xg, top, bot, diags, offsets=offs, with_dot=with_dot,
-            interpret=self._interpret,
-        )
-        if with_dot:
-            y, part = out
-            if sharded and S > 1:
-                part = jax.lax.psum(part, SHARD_AXIS)
-            return y.reshape(-1), part
-        return out.reshape(-1)
-
     def _linear_local(self, x_loc, coefs, *, sharded: bool, with_dot: bool):
-        """jnp fallback: shifted slices of the halo-extended local block
-        weighted by the local coefficient rows (zeros encode boundaries)."""
+        """Shifted slices of the halo-extended local block weighted by the
+        local coefficient rows (zeros encode boundaries)."""
         B = self.partition.block_size
         S = self.partition.num_pieces
         lo, hi = min(self.band_lo, B), min(self.band_hi, B)
@@ -325,52 +181,37 @@ class DiaOperator:
     # SquarePlanner.dump_state/load_state) so the coefficient arrays are
     # never baked into the compiled program as giant constants.
     def device_state(self):
-        if self._view is not None:
-            return (self._view["diags"],)
         return (self.flat_coefs,)
 
     def set_device_state(self, state) -> None:
-        if self._view is not None:
-            self._view["diags"] = state[0]
-        else:
-            self.flat_coefs = state[0]
-
-    def _coefs(self):
-        return self._view["diags"] if self._view is not None else self.flat_coefs
+        self.flat_coefs = state[0]
 
     def _fn(self, with_dot: bool):
         key = with_dot
         fn = self._fns.get(key)
         if fn is not None:
             return fn
-        self._interpret = jax.default_backend() == "cpu"
         S = self.partition.num_pieces
-        use_view = self._view is not None
 
         def local(x_loc, coefs, *, sharded):
-            if use_view:
-                return self._pallas_local(
-                    x_loc, coefs, sharded=sharded, with_dot=with_dot
-                )
             return self._linear_local(
                 x_loc, coefs, sharded=sharded, with_dot=with_dot
             )
 
         if S == 1:
-            # self._coefs() is re-read per call: under a solver jit the
+            # self.flat_coefs is re-read per call: under a solver jit the
             # coefficients arrive as traced loop-state, not constants
-            fn = lambda x: local(x, self._coefs(), sharded=False)
+            fn = lambda x: local(x, self.flat_coefs, sharded=False)
         else:
-            cspec = P(None, SHARD_AXIS, None) if use_view else P(None, SHARD_AXIS)
             out_specs = (P(SHARD_AXIS), P()) if with_dot else P(SHARD_AXIS)
             smapped = jax.shard_map(
                 lambda x, c: local(x, c, sharded=True),
                 mesh=self.mesh,
-                in_specs=(P(SHARD_AXIS), cspec),
+                in_specs=(P(SHARD_AXIS), P(None, SHARD_AXIS)),
                 out_specs=out_specs,
                 check_vma=False,
             )
-            fn = lambda x: smapped(x, self._coefs())
+            fn = lambda x: smapped(x, self.flat_coefs)
         self._fns[key] = fn
         return fn
 
@@ -379,7 +220,7 @@ class DiaOperator:
         return self._fn(False)(x)
 
     def matvec_dot(self, x: jnp.ndarray):
-        """(A @ x, <x, A x>) with the reduction fused into the kernel pass."""
+        """(A @ x, <x, A x>) with the reduction fused into the same pass."""
         return self._fn(True)(x)
 
     def matvec_add(self, y: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
@@ -402,7 +243,6 @@ class DiaOperator:
                 partition=self.partition,
                 mesh=self.mesh,
                 options=self.options,
-                use_pallas=self._view is not None,
             )
         return self._transpose_op
 

@@ -1,6 +1,6 @@
 """Row-partitioned distributed sparse operators with explicit halo exchange.
 
-This is the TPU-native realization of the reference's partitioned ``matvec``
+This is the JAX realization of the reference's partitioned ``matvec``
 launch (reference: COOMatrix.cpp:144-191, SquarePlanner.hpp:209-235): the
 reference gives each piece (a) its block of output rows, (b) the kernel
 sub-region of nonzeros whose row lands in that block (preimage of the row
@@ -21,11 +21,9 @@ Per-shard data layout (all shapes static, identical across shards — SPMD):
 
 ``matvec`` runs under ``jax.shard_map``: gather-send -> ``ppermute`` ->
 scatter into the extended buffer -> local SpMV.  The local SpMV is the
-windowed-gather Pallas kernel (ops/pallas/winell.py) whenever per-shard
-window planning over a banded-ordered extended layout succeeds
-(``_plan_sharded_winell`` — the round-4 fast path, ~130x the XLA gather on
-banded-ish matrices), and the dense XLA ELL gather + row reduction
-otherwise.  XLA overlaps the independent ppermutes with each other and
+windowed-ELL gather (ops/gather.py) whenever per-shard window planning over
+a banded-ordered extended layout succeeds (``_plan_sharded_winell``), and
+the dense ELL gather + row reduction otherwise.  XLA overlaps the independent ppermutes with each other and
 with the local portion of the compute (the analog of Legion overlapping
 ghost copies with leaf tasks).
 """
@@ -180,11 +178,10 @@ class RowPartitionedMatrix:
         self._matvec_sharded = None
         self._rmatvec_sharded = None
 
-        # ---- sharded windowed-gather fast path (round 4) ---------------
+        # ---- sharded windowed-ELL path ------------------------------------
         # Per-shard windowed-ELL plans over the EXTENDED buffer (local
-        # block + halo slots): kills the XLA-gather cliff for banded-ish
-        # matrices on multi-chip runs too (the single-chip story is
-        # parallel/winell_op.py).  All shards share one static geometry
+        # block + halo slots) for banded-ish matrices on several devices
+        # (the single-device form is parallel/winell_op.py).  All shards share one static geometry
         # (Rt/L/KR maxima) — SPMD.  Fallback: the XLA-gather ELL above.
         self._win = None
         if mesh is not None and not bool(
@@ -333,7 +330,7 @@ class RowPartitionedMatrix:
     def _build_ext(self, x_loc, sched):
         """Extended x buffer for this shard: local block + exchanged halo
         slots (one ppermute per ring offset; all independent -> overlapped
-        by XLA on ICI)."""
+        by XLA)."""
         S = self._S
         B_d = self._B_d
         ext = jnp.zeros(self.halo.ext_size, dtype=x_loc.dtype)
@@ -349,11 +346,10 @@ class RowPartitionedMatrix:
         return ext
 
     def _local_matvec_win(self, x_blk, wstart, cols, vals, *sched):
-        """Per-shard windowed-gather SpMV over the banded-ordered extended
-        buffer (the round-4 fast path; ~4*KR VPU ops/nonzero instead of
-        the XLA gather's serialization — see ops/pallas/winell.py).
-        ``sched`` = send_idx per offset, then recv_pos2 per offset."""
-        from ..ops.pallas.winell import winell_spmv
+        """Per-shard windowed-ELL SpMV over the banded-ordered extended
+        buffer (ops/gather.py).  ``sched`` = send_idx per offset, then
+        recv_pos2 per offset."""
+        from ..ops.gather import winell_spmv
 
         w = self._win
         S = self._S
@@ -372,7 +368,6 @@ class RowPartitionedMatrix:
         y = winell_spmv(
             ext.reshape(-1, 128), wstart[0], cols[0], vals[0],
             window_rows=w["KR"],
-            interpret=jax.default_backend() == "cpu",
         ).reshape(-1)
         return y[: self._B_r]
 

@@ -1,18 +1,13 @@
-"""General-sparsity SpMV: host-planned radix routing + blocked lane gathers.
+"""General-sparsity SpMV: host-planned radix routing + blocked gathers.
 
-The last capability hole vs the reference (r4 verdict, missing #1): the
-reference's cuSPARSE SpMV is pattern-agnostic (CSRMatrixTasks.cu:14-156,
-COOMatrixTasks.cu:12-146), but matrices RCM cannot band — random sparsity,
-power-law graphs — fell to the XLA-gather ELL at 0.04-0.11 Gnnz/s: XLA's
-arbitrary gather scalarizes on TPU (~0.2 Gelt/s, canonical-harness
-measurement in scripts/probe_gather_primitives.py), and the windowed-ELL
-kernel needs bounded per-tile column spans that random matrices don't have.
-
-The fix is to stop treating the gather as one operation: an ARBITRARY
-static gather-with-duplication ``xg[k] = x[col(k)]`` is decomposed at BUILD
-time into three row-structured stages, each a fast Pallas chunk-sweep of
-one-vreg lane gathers (``ops/pallas/rowperm.blockperm_gather``), with XLA
-transposes carrying all long-range movement:
+The reference's cuSPARSE SpMV is pattern-agnostic (CSRMatrixTasks.cu:14-156,
+COOMatrixTasks.cu:12-146); matrices RCM cannot band — random sparsity,
+power-law graphs — have no bounded per-tile column spans for the
+windowed-ELL tier.  This tier decomposes an ARBITRARY static
+gather-with-duplication ``xg[k] = x[col(k)]`` at BUILD time into three
+row-structured stages, each a blocked gather
+(``ops/gather.blockperm_gather``), with XLA transposes carrying all
+long-range movement:
 
   hop 1  fan out x rows into B1 destination groups
          (I1[a, g, :] = the x-row-a values destined for group g);
@@ -29,7 +24,7 @@ Slot widths W1/W2 are the measured per-cell maxima of the actual matrix
 feasibility + modeled cost.  Everything irregular happens on the host,
 once; the device program is a fixed pipeline of dense-shaped ops.
 
-Single piece (one chip) in this round; sharded systems keep the existing
+Single piece (one device); sharded systems keep the existing
 fallback.  Rows are expected pre-sorted by degree (descending) for tight
 SELL tiles — ``parallel/reorder.py`` arranges that basis like it arranges
 RCM for the banded path.
@@ -39,13 +34,12 @@ from __future__ import annotations
 
 from typing import Optional
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..options import SolverOptions, DEFAULT_OPTIONS
 from ..core.partition import BlockPartition
-from ..ops.pallas.rowperm import (
+from ..ops.gather import (
     MAX_BLOCK_ROWS,
     MAX_SRC_ROWS,
     MAX_W_ROWS,
@@ -57,7 +51,7 @@ _B1_CANDIDATES = (8, 16, 32, 64, 128, 256, 512, 1024)
 
 def _hop3_block_rows(G2: int, SRB3: int):
     """Smallest dest block size whose source block is 8-divisible and within
-    the kernel's caps, or None."""
+    the stage caps, or None."""
     for b in (8, 16, 32, 64, 128, 256):
         if b % G2:
             continue
@@ -105,13 +99,12 @@ def plan_static_gather(
         cnt1 = np.bincount(key1, minlength=A * B1)
         W1 = int(cnt1.max(initial=1))
         # 128-multiple W1: T1's transpose minor dimension is W1, and a
-        # sub-lane-width minor dim runs the XLA transpose ~20x below
-        # bandwidth (measured 6.6 ms for 100 MB at W1=48)
+        # narrow minor dimension makes the transpose inefficient
         W1 = _round_up(W1, int(np.lcm(np.lcm(max(8192 // B1, 1), q_t1),
                                       128)))
         f1 = B1 * W1 // 1024
         if f1 * 8 > MAX_BLOCK_ROWS:
-            continue  # hop-1 dest block (8 * f1 rows) beyond the kernel cap
+            continue  # hop-1 dest block (8 * f1 rows) beyond the stage cap
         RB = A * W1 // 1024
         order1 = np.argsort(key1, kind="stable")
         starts1 = np.zeros(A * B1 + 1, np.int64)
@@ -159,21 +152,18 @@ def plan_static_gather(
             # reserve a conservative 256 in the feasibility/cost check)
             v_guess = 256 if capped else 0
             SRB3 = -(-(RB * W2 + v_guess) // 1024)
-            # the sweep cost is per-REGION (SRB3 rows); the source block
-            # ((BR3 // G2) * SRB3 rows of VMEM) only needs to satisfy the
-            # kernel's 8-divisibility and size caps
+            # the source block ((BR3 // G2) * SRB3 rows) only needs to
+            # satisfy the stage's 8-divisibility and size caps
             BR3 = _hop3_block_rows(G2, SRB3)
             if P is None or SRB3 > MAX_W_ROWS or BR3 is None:
                 continue
             slots1 = A * B1 * W1
             slots2 = NB1 * P * 1024
-            # ns-calibrated stage model (measured on chip 2026-08-21):
-            # sweeps 0.023 ns/elt/window-row, streams ~0.011 ns/B at
-            # 700 GB/s, sub-lane-aligned transpose ~0.088 ns/elt
+            # elements each stage moves: hop 1, hop 2 + its transpose,
+            # hop 3, and the overflow pipeline (a few passes per element)
             n_ovf = int(np.maximum(cnt2 - W2, 0).sum()) if capped else 0
-            cost = (slots1 * 70 + slots2 * (34 + 88)
-                    + D * 1024 * (23 * SRB3 + 17)
-                    + n_ovf * 400 + (D * v_guess * 40 if capped else 0))
+            cost = (slots1 + 2 * slots2 + D * 1024
+                    + 4 * n_ovf + (D * v_guess if capped else 0))
             cand = (cost, B1, G1, G2, NRg, W1, RB, P, W2, SRB3, BR3,
                     capped, g1, rank1, pos1t, b_global, r_local, key2,
                     cnt2)
@@ -248,8 +238,7 @@ def plan_static_gather(
     }
 
 
-def apply_static_gather(x_pad, plan, idx1, idx2, idx3, vals3, ovf=None,
-                        interpret: bool = False):
+def apply_static_gather(x_pad, plan, idx1, idx2, idx3, vals3, ovf=None):
     """Run the planned pipeline: [A*1024] source -> [D_pad, 1024] products
     (gathered values scaled by ``vals3``; pure gather when vals3 is None).
     Index/value arrays are passed explicitly so callers thread them as jit
@@ -264,20 +253,17 @@ def apply_static_gather(x_pad, plan, idx1, idx2, idx3, vals3, ovf=None,
     i1 = blockperm_gather(
         x_pad, idx1, block_rows=8 * f1, src_block_rows=8,
         w0_table=tuple(dl // f1 for dl in range(8 * f1)),
-        interpret=interpret,
     )
     i1t = i1.reshape(A, B1, W1).transpose(1, 0, 2).reshape(-1)
     i2 = blockperm_gather(
         i1t, idx2, block_rows=8 * P, src_block_rows=8,
         w0_table=tuple(dl // P for dl in range(8 * P)),
-        interpret=interpret,
     )
     i2g = i2.reshape(B1, RB, P * 1024)[:, :, : NRg * W2]
     # T2 as a PLAIN 2-D transpose per group, (RB, NRg*W2) -> (NRg*W2, RB):
-    # both minor dims are large (RB >= 8, typically 128+), so XLA tiles it
-    # at near-stream rate.  The naive (0, 2, 1, 3) region-major move keeps
-    # W2 (tiny — the capped winner's W2 is ~6) as the minor dim, which runs
-    # ~20x below bandwidth; the within-row slot ORDER of i2t is plan-defined
+    # both minor dims are large (RB >= 8, typically 128+).  The naive
+    # (0, 2, 1, 3) region-major move keeps W2 (tiny — the capped winner's
+    # W2 is ~6) as the minor dim; the within-row slot ORDER of i2t is plan-defined
     # (idx3 encodes rank2 * RB + b_local to match this layout), so the
     # lane-major choice is free.
     i2t = i2g.reshape(B1, RB, NRg * W2).transpose(0, 2, 1)
@@ -290,7 +276,7 @@ def apply_static_gather(x_pad, plan, idx1, idx2, idx3, vals3, ovf=None,
     if V:
         plan_o, i1o, i2o, i3o = ovf
         flat_o = apply_static_gather(
-            x_pad, plan_o, i1o, i2o, i3o, None, interpret=interpret
+            x_pad, plan_o, i1o, i2o, i3o, None
         ).reshape(-1)[: n_regions * V]
         i2t = jnp.concatenate(
             [i2t, flat_o.reshape(n_regions, V)], axis=1
@@ -303,7 +289,7 @@ def apply_static_gather(x_pad, plan, idx1, idx2, idx3, vals3, ovf=None,
         i2t.reshape(-1), idx3, vals3, block_rows=BR3,
         src_block_rows=srb3_blk,
         w0_table=tuple((dl // G2) * SRB3 for dl in range(BR3)),
-        w_rows=SRB3, interpret=interpret,
+        w_rows=SRB3,
     )
 
 
@@ -312,7 +298,7 @@ class GeneralSpmvOperator:
     (single piece).  Rows should arrive pre-sorted by descending degree
     (the planner's degree basis) for tight SELL tiles; any order is
     correct.  Cites: reference cuSPARSE SpMV generality
-    (CSRMatrixTasks.cu:14-156) — this is its TPU realization."""
+    (CSRMatrixTasks.cu:14-156)."""
 
     def __init__(
         self,
@@ -426,7 +412,6 @@ class GeneralSpmvOperator:
                 segs.append((int(row_off[t0]), t - t0, int(Lt[t0])))
                 t0 = t
         self._segments = tuple(segs)
-        self._interpret = jax.default_backend() == "cpu"
         self._transpose_op = None
 
     # ------------------------------------------------------------------
@@ -444,10 +429,6 @@ class GeneralSpmvOperator:
     @property
     def supports_matvec_dot(self) -> bool:
         return False
-
-    @property
-    def uses_pallas(self) -> bool:
-        return True
 
     def device_state(self):
         return (self.idx1, self.idx2, self.idx3, self.vals3, self.ovf_idx,
@@ -469,7 +450,7 @@ class GeneralSpmvOperator:
         )
         prod = apply_static_gather(
             xp, self._plan, self.idx1, self.idx2, self.idx3, self.vals3,
-            ovf=ovf, interpret=self._interpret,
+            ovf=ovf,
         )
         parts = []
         for (row0, ntile, L) in self._segments:

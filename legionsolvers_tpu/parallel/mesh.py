@@ -1,6 +1,6 @@
 """Device mesh construction and sharding helpers.
 
-TPU-native replacement for the reference's mapper + sharding functor
+JAX replacement for the reference's mapper + sharding functor
 (reference: LegionSolversMapper.cpp:91-98, 140-151).  The reference's
 ``BlockingShardingFunctor`` assigns contiguous blocks of the 1-D color space
 to nodes; here the same policy is expressed once as a 1-D ``jax.sharding.Mesh``
@@ -12,8 +12,7 @@ collectives where needed.
 Multi-host: one jax process per host + ``jax.distributed.initialize`` gives
 control replication by construction (the analog of the reference's replicated
 top-level tasks, Test05COOSolveCG.cpp:101-106); ``make_mesh`` then sees all
-chips across hosts and lays the shard axis out so neighboring shards are
-ICI-adjacent.
+devices across hosts and lays the shard axis over them in order.
 """
 
 from __future__ import annotations
@@ -35,7 +34,7 @@ def make_mesh(
 
     ``num_shards`` defaults to all available devices (the analog of the
     reference's "pieces = 4 x nodes" launch policy, bench_all.py:169-208,
-    except that on TPU one piece per chip is the natural choice).
+    except that one piece per device is the natural choice here).
     """
     if devices is None:
         devices = jax.devices()
@@ -80,7 +79,7 @@ def initialize_distributed(
     bootstrap under ``Legion::Runtime::start``, build_legion.py:94-96 +
     jsrun launch, bench_all.py:44-67).  One jax process per host; after this,
     ``jax.devices()`` spans all hosts and ``make_mesh()`` lays the shard
-    axis across them (ICI within a slice, DCN across).  Arguments default to
+    axis across them.  Arguments default to
     the standard cluster env vars (``JAX_COORDINATOR_ADDRESS`` etc.); no-op
     when already initialized or single-process."""
     import jax.distributed

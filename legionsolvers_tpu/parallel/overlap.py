@@ -4,11 +4,11 @@ The reference gets communication/compute overlap for free: Legion issues
 ghost-region copies asynchronously and leaf tasks whose inputs are ready run
 concurrently (reference: COOMatrix.cpp:172-188 ghost region requirement;
 CGSolver.hpp:46-55 never blocks).  A naive shard_map port loses that: the
-Pallas SpMV *consumes* the ppermute results, so XLA must finish the halo
-exchange before the kernel starts, leaving ICI latency exposed on every
-matvec.
+SpMV pass *consumes* the ppermute results, so XLA must finish the halo
+exchange before the pass starts, leaving the collective's latency exposed
+on every matvec.
 
-The TPU-native fix implemented here: run the main kernel pass with ZERO halo
+The fix implemented here: run the main pass with ZERO halo
 blocks — making it data-independent of the ppermute, so XLA's async
 collective scheduler (collective-permute-start/-done) is free to fly the
 exchange during the whole O(n) pass — then patch the first/last ``bandwidth``
@@ -17,7 +17,7 @@ only O(bandwidth * C) elements, so its cost is negligible against the O(n)
 pass; the dataflow-independence property is asserted by
 tests/test_18_overlap.py on the jaxpr.
 
-Layout contract matches the stencil kernels (stencil2d/dia2d): the local
+Layout contract matches the grid passes (ops/grid2d.py): the local
 block is a [Br, C] grid; halo ``top`` is an [8, C] block whose LAST rlo rows
 are the neighbor's edge rows (x[-rlo:]), halo ``bot``'s FIRST rhi rows are
 x[Br:Br+rhi]; both are zeros at the global grid edges.
@@ -27,27 +27,15 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-
-def colshift(rows2d: jnp.ndarray, dx: int) -> jnp.ndarray:
-    """Shift columns by ``dx`` with zero fill: out[:, c] = rows2d[:, c + dx]
-    when 0 <= c + dx < C, else 0.  Any |dx| < C (including the wrapped
-    sub-diagonals of flat 1-D decompositions)."""
-    k, C = rows2d.shape
-    if dx == 0:
-        return rows2d
-    if dx >= C or dx <= -C:
-        return jnp.zeros_like(rows2d)
-    if dx > 0:
-        return jnp.pad(rows2d[:, dx:], ((0, 0), (0, dx)))
-    return jnp.pad(rows2d[:, : C + dx], ((0, 0), (-dx, 0)))
+from ..ops.grid2d import acc_dtype, colshift
 
 
 def edge_missing(offsets, top, bot, Br: int, coeff):
     """The contributions a zero-halo stencil pass omitted at the block edges.
 
     ``coeff(k, row_slice)`` returns the multiplier for offset ``k`` restricted
-    to ``row_slice`` of the output rows — a scalar for constant-coefficient
-    stencils, a [rows, C] coefficient slab slice for DIA operators.
+    to ``row_slice`` of the output rows (a scalar for constant-coefficient
+    stencils).
 
     Returns (miss_top, miss_bot): [rlo, C] additions to y[0:rlo] and
     [rhi, C] additions to y[Br-rhi:], either possibly None.
@@ -73,7 +61,7 @@ def edge_missing(offsets, top, bot, Br: int, coeff):
 
 
 def apply_edge_fixup(y: jnp.ndarray, offsets, top, bot, coeff):
-    """y (zero-halo kernel output, [Br, C]) + the omitted edge terms."""
+    """y (zero-halo pass output, [Br, C]) + the omitted edge terms."""
     Br = y.shape[0]
     miss_top, miss_bot = edge_missing(offsets, top, bot, Br, coeff)
     if miss_top is not None:
@@ -88,11 +76,12 @@ def dot_fixup(x: jnp.ndarray, offsets, top, bot, coeff) -> jnp.ndarray:
     sum over edge rows of x * (omitted A x terms)."""
     Br = x.shape[0]
     miss_top, miss_bot = edge_missing(offsets, top, bot, Br, coeff)
-    fix = jnp.zeros((), jnp.float32)
+    acc = acc_dtype(x.dtype)
+    fix = jnp.zeros((), acc)
     if miss_top is not None:
         k = miss_top.shape[0]
-        fix = fix + jnp.sum((x[:k, :] * miss_top).astype(jnp.float32))
+        fix = fix + jnp.sum((x[:k, :] * miss_top).astype(acc))
     if miss_bot is not None:
         k = miss_bot.shape[0]
-        fix = fix + jnp.sum((x[Br - k :, :] * miss_bot).astype(jnp.float32))
+        fix = fix + jnp.sum((x[Br - k :, :] * miss_bot).astype(acc))
     return fix

@@ -1,8 +1,9 @@
 """Reordered-basis solves: RCM at build time, permutation only at the edges.
 
-The reference never reorders — cuSPARSE SpMV gathers arbitrary sparsity at
-full device speed (reference: CSRMatrixTasks.cu:14-156) — but the TPU has no
-fast gather, so *general* sparsity is made banded at build time instead:
+The reference never reorders — it hands arbitrary sparsity to cuSPARSE
+(reference: CSRMatrixTasks.cu:14-156).  Here *general* sparsity is made
+banded at build time instead, so that the banded layouts (DIA, windowed
+ELL) apply:
 
     solve  (P A P^T) (P x) = P b       with P = RCM permutation
 
@@ -13,9 +14,7 @@ counts are unchanged.  The permutation is applied ONCE per solve at the
 boundaries (``SquarePlanner.to_solver_basis``/``from_solver_basis`` — a
 handful of device gathers amortized over hundreds of iterations), never
 inside the hot loop.  This is the standard sparse-solver playbook (PETSc/
-hypre apply RCM for bandwidth reduction the same way); on TPU it is the
-difference between the 0.11 Gnnz/s XLA-gather cliff and the streaming
-DIA / windowed-ELL kernels.
+hypre apply RCM for bandwidth reduction the same way).
 
 :class:`ReorderedOperator` wraps an operator built on the PERMUTED matrix.
 While a solve is in the reordered basis (``in_basis`` set by the planner),
@@ -96,9 +95,6 @@ class ReorderedOperator:
     def nnz(self) -> int:
         return self.base.nnz()
 
-    @property
-    def uses_pallas(self) -> bool:
-        return getattr(self.base, "uses_pallas", False)
 
     @property
     def supports_matvec_dot(self) -> bool:
@@ -194,10 +190,9 @@ def try_reordered_operator(
             plan_winell_classes,
         )
 
-        # sliced-ELL per-degree-class plans (round 5): kills the uniform-L
-        # padding on irregular-row matrices (the round-4 randband row paid
-        # 3.3x); falls back to the classic uniform plan when one class
-        # suffices or slicing is ineligible
+        # sliced-ELL per-degree-class plans: kill the uniform-L padding on
+        # irregular-row matrices; fall back to the classic uniform plan
+        # when one class suffices or slicing is ineligible
         import os as _os2
 
         planc = None
@@ -317,9 +312,6 @@ class CrossBasisOperator:
     def nnz(self) -> int:
         return self.base.nnz()
 
-    @property
-    def uses_pallas(self) -> bool:
-        return getattr(self.base, "uses_pallas", False)
 
     def device_state(self):
         base_state = (

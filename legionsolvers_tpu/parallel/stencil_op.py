@@ -1,32 +1,30 @@
-"""Matrix-free stencil operator — the TPU fast path.
+"""Matrix-free stencil operator.
 
 The reference's benchmark drives linearized-CSR stencil matrices through
 cuSPARSE (reference: BenchmarkStencil.cpp:24-137, CSRMatrixTasks.cu:14-156).
-A stencil matrix is exactly banded, so on TPU the idiomatic storage is **no
-storage at all**: ``matvec`` is a sum of statically shifted, boundary-masked
-elementwise multiply-adds over the source vector — pure VPU work with O(n)
-HBM traffic (vs O(nnz) index+value traffic for CSR/ELL), the speed-of-light
-for this memory-bound operation.
+A stencil matrix is exactly banded, so it needs **no storage at all**:
+``matvec`` is a sum of statically shifted, boundary-masked multiply-adds over
+the source vector, O(n) memory traffic against O(nnz) index and value
+traffic for CSR/ELL.
 
-Two execution paths, selected automatically:
+Two layouts, selected automatically:
 
-* **Pallas path** (preferred, 1-D and 2-D grids): the local block is viewed
-  as a 2-D [rows, C] slab and processed by the double-buffered Pallas kernel
-  (``ops/pallas/stencil2d.py``), which streams each x tile into VMEM once
-  and forms all diagonal contributions there (~8 bytes/element total HBM
-  traffic).  1-D stencils map onto the same kernel via the flat-offset
-  decomposition; 2-D grids use their natural view.
-* **linearized path** (fallback, any dim/geometry): 1-D shifted slices with
-  integer-computed boundary masks, fused by XLA into a single pass that
-  re-reads x once per diagonal.
+* **grid view** (2-D and 3-D grids whose shard blocks are whole rows or
+  planes; 1-D blocks folded into ``[rows, C]`` by the flat-offset
+  decomposition): the local block is a ``[rows, C]`` or ``[X, Y, Z]``
+  grid, and the passes of ``ops/grid2d.py`` / ``ops/grid3d.py`` apply the
+  stencil with halo rows or planes from the neighbour shards.  Solvers get
+  fused whole-iteration runners over it; 2-D CG takes the s-step schedule,
+  whose pass is the Triton kernel of ``ops/pallas/sstep2d.py``.
+* **linearized path** (4-D+, padded tails, small 1-D blocks): 1-D shifted
+  slices with integer-computed boundary masks, fused by XLA into one pass.
 
 Distribution: the linearized index is block-sharded; the stencil bandwidth
-is bounded by the block size (checked), so halo exchange is two neighbor
+is bounded by the block size (checked), so halo exchange is two neighbour
 ``ppermute``s of fixed edge windows (the reference observes the same
 structure: stencil ghosts are the block edges +- bandwidth, SURVEY §5).
-Ring-wrapped windows at the global edges are zeroed (Pallas/grid view) or
-killed by the boundary masks (linearized view), so edge shards need no
-special casing.
+Ring-wrapped windows at the global edges are zeroed (grid view) or killed by
+the boundary masks (linearized view), so edge shards need no special casing.
 """
 
 from __future__ import annotations
@@ -59,7 +57,7 @@ class StencilOperator:
         partition: Optional[BlockPartition] = None,
         mesh: Optional[Mesh] = None,
         options: SolverOptions = DEFAULT_OPTIONS,
-        use_pallas: Optional[bool] = None,
+        grid_view: bool = True,
     ):
         self.shape = tuple(int(d) for d in shape)
         self.offsets = [(tuple(int(c) for c in o), float(v)) for o, v in offsets]
@@ -81,17 +79,13 @@ class StencilOperator:
         # ppermute can no longer supply the halo; the linearized path then
         # falls back to a gather-based (all_gather) halo instead of failing
         # (the reference handles any partition/ghost shape via Legion images,
-        # COOMatrix.cpp:98-118 — this is the TPU analog of that generality).
+        # COOMatrix.cpp:98-118).
         B = partition.block_size
         self._wide_band = (
             partition.num_pieces > 1 and max(self.band_lo, self.band_hi) > B
         )
 
-        if use_pallas is None:
-            use_pallas = not bool(int(os.environ.get("LEGIONSOLVERS_NO_PALLAS", "0")))
-        self._view = self._plan_pallas_view() if use_pallas else None
-        self._interpret = False  # decided at build time from the backend
-        self._matvec_fn = None
+        self._view = self._plan_grid_view() if grid_view else None
 
     # -- interface parity ---------------------------------------------------
     @property
@@ -103,7 +97,7 @@ class StencilOperator:
         return self.n
 
     @property
-    def uses_pallas(self) -> bool:
+    def uses_grid_view(self) -> bool:
         return self._view is not None
 
     @property
@@ -126,50 +120,43 @@ class StencilOperator:
         )
 
     # ======================================================================
-    # Pallas view planning
+    # grid view planning
     # ======================================================================
-    def _plan_pallas_view(self):
-        from ..ops.pallas.stencil2d import decompose_flat_offsets, supports
-
+    def _plan_grid_view(self):
+        """The [rows, C] (2-D, and 1-D through the flat-offset
+        decomposition) or [X, Y, Z] (3-D) view of the local block, or None.
+        Shard blocks must hold whole rows / planes, and the halo must fit
+        the passes' contract: |dy| <= 8 rows (2-D), |ox| <= 1 plane (3-D)."""
         if self.partition.padded_size != self.n:
             return None  # padded tail rows would need masking
-        if jnp.dtype(self.options.entry_dtype).itemsize != 4:
-            return None
         B = self.partition.block_size
-        if len(self.shape) == 2:
-            C = self.shape[1]
-            if B % C:
+        vals = tuple(v for _, v in self.offsets)
+        from ..ops.grid2d import decompose_flat_offsets, row_bandwidth
+
+        def view2d(C, offs, vals):
+            rlo, rhi = row_bandwidth(offs)
+            if B % C or rlo > 8 or rhi > 8 or B // C < max(rlo, rhi, 1):
                 return None
+            return {"kind": "2d", "C": C, "Br": B // C, "offs": offs,
+                    "vals": vals}
+
+        if len(self.shape) == 2:
             offs = tuple((o[0], o[1]) for o, _ in self.offsets)
-            vals = tuple(v for _, v in self.offsets)
-            Br = B // C
-            if supports(Br, C, offs):
-                return {"kind": "2d", "C": C, "Br": Br, "offs": offs,
-                        "vals": vals}
-            return None
+            return view2d(self.shape[1], offs, vals)
         if len(self.shape) == 1:
             for C in (4096, 2048, 1024, 512, 256, 128):
-                if B % C == 0 and (B // C) >= 8:
-                    offs, vals = decompose_flat_offsets(
-                        self.lin_offsets, [v for _, v in self.offsets], C
-                    )
-                    if supports(B // C, C, offs):
-                        return {"kind": "2d", "C": C, "Br": B // C,
-                                "offs": offs, "vals": vals}
+                if B % C == 0 and B // C >= 8:
+                    return view2d(C, *decompose_flat_offsets(
+                        self.lin_offsets, vals, C))
             return None
         if len(self.shape) == 3:
-            from ..ops.pallas.stencil3d import supports3d
-
             _, Y, Z = self.shape
-            if B % (Y * Z):
-                return None  # shard blocks must be whole x-plane slabs
             offs3 = tuple(o for o, _ in self.offsets)
-            vals = tuple(v for _, v in self.offsets)
-            if supports3d(Y, Z, offs3):
-                return {"kind": "3d", "Y": Y, "Z": Z, "Br": B // (Y * Z),
-                        "offs3": offs3, "vals": vals}
-            return None
-        return None  # 4-D+: linearized fallback
+            if B % (Y * Z) or any(abs(o[0]) > 1 for o in offs3):
+                return None
+            return {"kind": "3d", "Y": Y, "Z": Z, "Br": B // (Y * Z),
+                    "offs3": offs3, "vals": vals}
+        return None  # 4-D+: linearized path
 
     def _exchange_planes3d(self, g: jnp.ndarray, *, sharded: bool):
         """([Y, Z] top, [Y, Z] bot) x-halo planes for the local [Xl, Y, Z]
@@ -200,10 +187,10 @@ class StencilOperator:
                 )
         return top, bot
 
-    def _pallas_local_3d(
+    def _grid_local_3d(
         self, x_loc: jnp.ndarray, *, sharded: bool, with_dot: bool = False
     ):
-        from ..ops.pallas.stencil3d import grid3d_stencil_matvec
+        from ..ops.grid3d import grid3d_stencil_matvec
 
         v = self._view
         Y, Z, Br = v["Y"], v["Z"], v["Br"]
@@ -213,7 +200,7 @@ class StencilOperator:
         top, bot = self._exchange_planes3d(xg, sharded=sharded)
         out = grid3d_stencil_matvec(
             xg, top, bot, offsets=v["offs3"], values=v["vals"],
-            with_dot=with_dot, interpret=self._interpret,
+            with_dot=with_dot,
         )
         if with_dot:
             y, partial = out
@@ -222,14 +209,14 @@ class StencilOperator:
             return (y.reshape(-1) if was_flat else y), partial
         return out.reshape(-1) if was_flat else out
 
-    def _pallas_local(
+    def _grid_local(
         self, x_loc: jnp.ndarray, *, sharded: bool, with_dot: bool = False
     ):
-        from ..ops.pallas.stencil2d import grid2d_stencil_matvec
+        from ..ops.grid2d import grid2d_stencil_matvec
 
         v = self._view
         if v.get("kind") == "3d":
-            return self._pallas_local_3d(
+            return self._grid_local_3d(
                 x_loc, sharded=sharded, with_dot=with_dot
             )
         C, Br, offs, vals = v["C"], v["Br"], v["offs"], v["vals"]
@@ -240,7 +227,7 @@ class StencilOperator:
         xg = x_loc.reshape(Br, C) if was_flat else x_loc
         dtype = xg.dtype
 
-        # kernel contract: [8, C] blocks, halo rows last-rlo (top) /
+        # halo contract: [8, C] blocks, halo rows last-rlo (top) /
         # first-rhi (bottom), zeros at the global grid edges
         top = jnp.zeros((8, C), dtype)
         bot = jnp.zeros((8, C), dtype)
@@ -262,7 +249,7 @@ class StencilOperator:
                 bot = bot.at[:rhi, :].set(h)
 
         if sharded and S > 1 and (rlo or rhi):
-            # Overlap: the kernel pass runs with ZERO halos, so it is
+            # Overlap: the pass runs with ZERO halos, so it is
             # data-independent of the ppermutes above and XLA's async
             # collective scheduler can fly the exchange during the O(n)
             # pass; the omitted edge terms are patched afterwards
@@ -272,8 +259,7 @@ class StencilOperator:
 
             zero = jnp.zeros((8, C), dtype)
             out = grid2d_stencil_matvec(
-                xg, zero, zero, offsets=offs, values=vals,
-                interpret=self._interpret, with_dot=with_dot,
+                xg, zero, zero, offsets=offs, values=vals, with_dot=with_dot,
             )
             coeff = lambda k, sl: jnp.asarray(vals[k], dtype)
             if with_dot:
@@ -288,8 +274,7 @@ class StencilOperator:
             return y.reshape(-1) if was_flat else y
 
         out = grid2d_stencil_matvec(
-            xg, top, bot, offsets=offs, values=vals,
-            interpret=self._interpret, with_dot=with_dot,
+            xg, top, bot, offsets=offs, values=vals, with_dot=with_dot,
         )
         if with_dot:
             y, partial = out
@@ -364,7 +349,7 @@ class StencilOperator:
 
     def _local_matvec(self, x_loc: jnp.ndarray, *, sharded: bool) -> jnp.ndarray:
         if self._view is not None:
-            return self._pallas_local(x_loc, sharded=sharded)
+            return self._grid_local(x_loc, sharded=sharded)
         return self._linear_local(x_loc, sharded=sharded)
 
     # ======================================================================
@@ -389,15 +374,14 @@ class StencilOperator:
         return jnp.concatenate(outs)
 
     def _make_fn(self, *, grid_input: bool, with_dot: bool):
-        self._interpret = jax.default_backend() == "cpu"
         S = self.partition.num_pieces
         if grid_input and self._view is None:
-            raise ValueError("grid-layout input requires the Pallas view")
+            raise ValueError("grid-layout input requires the grid view")
 
         def local(x_loc, *, sharded):
             if with_dot:
                 if self._view is not None:
-                    return self._pallas_local(
+                    return self._grid_local(
                         x_loc, sharded=sharded, with_dot=True
                     )
                 y = self._local_matvec(x_loc, sharded=sharded)
@@ -421,7 +405,6 @@ class StencilOperator:
                     partition=BlockPartition(self.n, 1),
                     mesh=None, options=self.options,
                 )
-                op1._interpret = self._interpret
                 return lambda x: op1._local_matvec(x, sharded=False)
             return self._unsharded_multiblock
         ndim_in = len(self.shape) if grid_input else 1
@@ -433,7 +416,7 @@ class StencilOperator:
             in_specs=(data_spec,),
             out_specs=out_specs,
             # pallas_call's out_shape carries no varying-mesh-axes metadata;
-            # disable the vma check for this shard_map
+            # disable the vma check for the shard_maps that reach a kernel
             check_vma=False,
         )
 
@@ -450,12 +433,12 @@ class StencilOperator:
 
     def matvec(self, x: jnp.ndarray) -> jnp.ndarray:
         """y = A @ x.  ``x`` may be the flat padded layout or (when the
-        Pallas view is active) the natural grid layout — the result matches
+        grid view is active) the natural grid layout — the result matches
         the input layout."""
         return self._fn(x, False)(x)
 
     def matvec_dot(self, x: jnp.ndarray):
-        """(A @ x, <x, A x>) with the reduction fused into the SpMV kernel
+        """(A @ x, <x, A x>) with the reduction fused into the SpMV pass
         where possible — used by CG to avoid re-reading p and q for the
         alpha denominator."""
         return self._fn(x, True)(x)
@@ -464,35 +447,19 @@ class StencilOperator:
         return y + self.matvec(x)
 
     # ======================================================================
-    # Fused-CG fast path: whole iterations as two Pallas passes
+    # Fused-CG runners: whole solves as one compiled loop
     # ======================================================================
     @property
     def supports_fused_cg(self) -> bool:
-        """Whether :meth:`make_fused_cg_runner` is available.  Matrix-free
-        stencils always support a fused schedule (the Pallas kernels where
-        the view is active, the jnp recompute path otherwise); sharded runs
-        need a mesh."""
-        if self.partition.num_pieces > 1 and self.mesh is None:
-            return False
-        if self._view is None:
-            return True  # jnp recompute path: any geometry/dtype
-        if self._view.get("kind") == "3d":
-            return True  # VMEM validated by supports3d(n_streams=4) at plan
-        from ..ops.pallas.stencil2d import _pick_tile_rows, _pick_tile_rows_dual
-
-        v = self._view
-        itemsize = jnp.dtype(self.options.entry_dtype).itemsize
-        rlo = max(0, -min(dy for dy, _ in v["offs"]))
-        rhi = max(0, max(dy for dy, _ in v["offs"]))
-        trd = _pick_tile_rows_dual(v["Br"], v["C"], itemsize)
-        tru = _pick_tile_rows(v["Br"], v["C"], itemsize, n_streams=4)
-        return min(trd, tru) > 0 and rlo <= 8 and rhi <= 8
+        """Whether :meth:`make_fused_cg_runner` is available: always, except
+        sharded runs without a mesh."""
+        return self.partition.num_pieces == 1 or self.mesh is not None
 
     @property
     def step2_eligible(self) -> bool:
         """Whether the s-step (2 iterations / pass, 12 B/unknown/iter)
-        fused-CG schedule applies: 2-D Pallas view with row bandwidth <= 1
-        and lane offsets within one pad block, not disabled via
+        fused-CG schedule applies: 2-D grid view with a stencil the s-step
+        kernel takes (|dy| <= 1, |dx| <= 1), not disabled via
         LEGIONSOLVERS_NO_SSTEP.  Sharded runs qualify too (mesh required,
         local blocks of >= 16 rows): the pass stays zero-halo/overlappable
         and the 4-row-deep edge corruption of the outputs AND the Gram is
@@ -511,25 +478,17 @@ class StencilOperator:
             # the two edge-fixup strips must not overlap
             if v["Br"] < 2 * STRIP:
                 return False
-            # the jnp edge-fixup algebra (sstep_sharded._apply/colshift)
-            # does not model the roll+mask row-wrap terms of flat 1-D
-            # decompositions; those stay single-shard on this schedule
-            from ..ops.pallas.stencil2d import PADC
+        from ..ops.pallas.sstep2d import supported
 
-            if any(abs(dx) > PADC - 8 for _, dx in v["offs"]):
-                return False
-        from ..ops.pallas.stencil2d import step2_supported
-
-        itemsize = jnp.dtype(self.options.entry_dtype).itemsize
-        return step2_supported(v["Br"], v["C"], v["offs"], itemsize)
+        return supported(v["offs"])
 
     def _make_step2_cg_runner(self, num_iterations: int, donate: bool = False):
-        """s-step fused CG: one Pallas pass per TWO iterations (read x/r/p,
+        """s-step fused CG: one kernel pass per TWO iterations (read x/r/p,
         write x''/r''/p'', 12 B/unknown/iteration) with both iterations'
         coefficients derived from the Gram matrix of {r, Ar, p, Ap, A^2p}
-        that the *previous* pass emitted (ops/pallas/stencil2d.py, s=2
-        monomial basis — the TPU-native completion of the reference's own
-        fused double-CG sketch, reference: scripts/krylov.py:34-93).  A
+        that the *previous* pass emitted (ops/pallas/sstep2d.py, s=2
+        monomial basis — the completion of the reference's own fused
+        double-CG sketch, reference: scripts/krylov.py:34-93).  A
         gram2 bootstrap pass starts the recurrence from any (x, r, p, rr)
         state; an odd trailing iteration runs as update + XLA xpay.  Same
         contract as the other runners: run(x, r, p, rr0) ->
@@ -544,17 +503,13 @@ class StencilOperator:
         on ill-conditioned systems.  Amortized cost: 2/REFRESH extra vector
         passes per 2 iterations (~1.5% traffic at the default), counted by
         utils/roofline.py."""
-        from ..ops.pallas.stencil2d import (
-            cg2_coeffs,
-            grid2d_cg_gram2,
-            grid2d_cg_step2,
-            grid2d_cg_update,
-        )
+        from ..ops.grid2d import acc_dtype, cg2_coeffs, grid2d_cg_update
+        from ..ops.pallas.sstep2d import gram2, step2
 
         v = self._view
         C, Br, offs, vals = v["C"], v["Br"], v["offs"], v["vals"]
-        interpret = jax.default_backend() == "cpu"
-        kw = dict(offsets=offs, values=vals, interpret=interpret)
+        acc = acc_dtype(self.options.entry_dtype)
+        kw = dict(offsets=offs, values=vals)
         K, odd = divmod(num_iterations, 2)
         refresh = int(os.environ.get("LEGIONSOLVERS_SSTEP_REFRESH", "16"))
         S = self.partition.num_pieces
@@ -570,25 +525,25 @@ class StencilOperator:
 
         def sharded_gram2(r, p):
             halos = exchange_halo4(r, p, SHARD_AXIS, S)
-            g = grid2d_cg_gram2(r, p, **kw)
+            g = gram2(r, p, **kw)
             g = gram2_fixup(g, r, p, halos, offs, vals, SHARD_AXIS, S)
             return jax.lax.psum(g, SHARD_AXIS)
 
         def gram_bootstrap(r, p):
             if sharded:
                 return sharded_gram2(r, p)
-            return grid2d_cg_gram2(r, p, **kw)
+            return gram2(r, p, **kw)
 
         def step2_pass(x, r, p, coef):
             """One zero-halo step2 pass; sharded runs pre-exchange 4-row
             input halos (flying under the pass — parallel/overlap.py) and
             repair the edge corruption + Gram afterwards."""
             if not sharded:
-                return grid2d_cg_step2(x, r, p, coef, **kw)
+                return step2(x, r, p, coef, **kw)
             halos = exchange_halo4(r, p, SHARD_AXIS, S)
             saves = (x[:STRIP], r[:STRIP], p[:STRIP],
                      x[-STRIP:], r[-STRIP:], p[-STRIP:])
-            x, r, p, g = grid2d_cg_step2(x, r, p, coef, **kw)
+            x, r, p, g = step2(x, r, p, coef, **kw)
             x, r, p, g = step2_fixup(
                 (x, r, p, g), saves, halos, coef, offs, vals, SHARD_AXIS, S
             )
@@ -598,8 +553,8 @@ class StencilOperator:
             was_flat = x.ndim == 1
             if was_flat:
                 x, r, p = (a.reshape(Br, C) for a in (x, r, p))
-            rr0 = jnp.asarray(rr0, jnp.float32)
-            hist = jnp.zeros(num_iterations + 1, jnp.float32).at[0].set(rr0)
+            rr0 = jnp.asarray(rr0, acc)
+            hist = jnp.zeros(num_iterations + 1, acc).at[0].set(rr0)
             g = gram_bootstrap(r, p)
 
             def body(k, carry):
@@ -623,10 +578,7 @@ class StencilOperator:
             if refresh > 0 and K > refresh:
                 # Drift guard without control flow in the hot loop: a
                 # nested structure re-measures the Gram from the stored
-                # vectors at every block boundary.  (The first cut used a
-                # per-pass lax.cond; on TPU that serialized against the
-                # pass and cost ~gram2's full time EVERY pass — measured
-                # 0.72 vs 0.45 ms/iter.)
+                # vectors at every block boundary.
                 n_blocks, rem = divmod(K, refresh)
                 state = run_block((x, r, p, g, hist), jnp.int32(0), refresh)
 
@@ -673,7 +625,7 @@ class StencilOperator:
                     if mb is not None:
                         r = r.at[Br - mb.shape[0] :].add(-miss_alpha * mb)
                     rr_new = jax.lax.psum(
-                        jnp.sum((r * r).astype(jnp.float32)), SHARD_AXIS
+                        jnp.sum((r * r).astype(acc)), SHARD_AXIS
                     )
                 else:
                     z = jnp.zeros((8, C), p.dtype)
@@ -708,58 +660,59 @@ class StencilOperator:
             return fn
 
         def runner(x, r, p, rr0):
-            return build(x.ndim)(x, r, p, jnp.asarray(rr0, jnp.float32))
+            return build(x.ndim)(x, r, p, jnp.asarray(rr0, acc))
 
         runner.build = build
         return runner
 
     def make_fused_cg_runner(self, num_iterations: int, donate: bool = False):
-        """Build a compiled CG loop where each iteration is two fused Pallas
-        passes moving 32 B/unknown total (vs 48 for the classic
-        matvec/dot/axpy/axpy/dot/xpay schedule), or — single-shard 2-D f32
-        with small bandwidth — the s-step schedule (one pass per two
-        iterations, 12 B/unknown/iteration, see :meth:`step2_eligible`):
+        """Build a compiled CG loop.  2-D grids with a stencil the s-step
+        kernel takes run the s-step schedule (one pass per two iterations,
+        12 B/unknown/iteration, see :meth:`step2_eligible`); other grid views
+        run two fused passes per iteration, 32 B/unknown (vs 48 for the
+        classic matvec/dot/axpy/axpy/dot/xpay schedule):
 
-        * pass 1 ``xpay_pq``: p = r + beta p and pq = <p, A p> with A p formed
-          in VMEM only (12 B/elt);
+        * pass 1 ``xpay_pq``: p = r + beta p and pq = <p, A p>, A p not
+          stored (12 B/elt);
         * pass 2 ``update``: x += alpha p, r -= alpha (A p), rr = <r, r>,
-          re-deriving A p in VMEM (20 B/elt).
+          re-deriving A p (20 B/elt).
 
         Iteration 0 runs as a prologue using the *incoming* p (a plain ``pq``
         pass instead of ``xpay_pq``), so the loop is an exact continuation of
         standard CG from any (x, r, p, rr) state.  Returned callable:
         ``run(x, r, p, rr0) -> (x, r, p, history)`` with history[0] = rr0;
         inputs may be flat padded blocks or grid layout.  q = A p is never
-        materialized in HBM.
+        stored.
         """
         if num_iterations < 1:
             raise ValueError("fused CG runner needs at least one iteration")
         if self._view is None:
             return self._make_jnp_cg_runner(num_iterations, donate)
         if self._view.get("kind") == "3d":
-            return self._make_pallas3d_cg_runner(num_iterations, donate)
+            return self._make_grid3d_cg_runner(num_iterations, donate)
         if num_iterations >= 2 and self.step2_eligible:
             return self._make_step2_cg_runner(num_iterations, donate)
 
-        from ..ops.pallas.stencil2d import (
+        from ..ops.grid2d import (
+            acc_dtype,
             grid2d_cg_pq,
             grid2d_cg_update,
             grid2d_cg_xpay_pq,
+            row_bandwidth,
         )
 
         v = self._view
         C, Br, offs, vals = v["C"], v["Br"], v["offs"], v["vals"]
         S = self.partition.num_pieces
-        rlo = max(0, -min(dy for dy, _ in offs))
-        rhi = max(0, max(dy for dy, _ in offs))
-        interpret = jax.default_backend() == "cpu"
+        rlo, rhi = row_bandwidth(offs)
+        acc = acc_dtype(self.options.entry_dtype)
         sharded = S > 1
-        kw = dict(offsets=offs, values=vals, interpret=interpret)
+        kw = dict(offsets=offs, values=vals)
 
         def exchange(*grids):
             """Per-array ([8, C] top, [8, C] bot) halo blocks: neighbor edge
             rows via one fused ppermute per direction, zeros at the global
-            grid edges (kernel contract: top real rows last, bottom first)."""
+            grid edges (halo contract: top real rows last, bottom first)."""
             dtype = grids[0].dtype
             tops = [jnp.zeros((8, C), dtype) for _ in grids]
             bots = [jnp.zeros((8, C), dtype) for _ in grids]
@@ -831,8 +784,8 @@ class StencilOperator:
             was_flat = x.ndim == 1
             if was_flat:
                 x, r, p = (a.reshape(Br, C) for a in (x, r, p))
-            rr0 = jnp.asarray(rr0, jnp.float32)
-            hist = jnp.zeros(num_iterations + 1, jnp.float32).at[0].set(rr0)
+            rr0 = jnp.asarray(rr0, acc)
+            hist = jnp.zeros(num_iterations + 1, acc).at[0].set(rr0)
             # prologue: iteration 0 with the incoming p (pq-only pass),
             # same zero-halo overlap structure as the loop body
             (p_top,), (p_bot,) = exchange(p)
@@ -876,19 +829,16 @@ class StencilOperator:
             return fn
 
         def runner(x, r, p, rr0):
-            return build(x.ndim)(x, r, p, jnp.asarray(rr0, jnp.float32))
+            return build(x.ndim)(x, r, p, jnp.asarray(rr0, acc))
 
-        # exposed for AOT inspection (scripts/dump_overlap_hlo.py lowers the
-        # jitted shard_map against a device-less TPU topology to check the
-        # compiled schedule without executing)
         runner.build = build
         return runner
 
     @property
     def supports_fused_bicgstab(self) -> bool:
-        """Whether :meth:`make_fused_bicgstab_runner` is available: 2-D
-        Pallas view, geometry within the kernel family's limits.  Sharded
-        runs qualify too (mesh required, local blocks >= 16 rows): the
+        """Whether :meth:`make_fused_bicgstab_runner` is available: any grid
+        view (3-D single-shard).  Sharded 2-D runs qualify too (mesh
+        required, local blocks >= 16 rows): the
         passes stay zero-halo and the single-application edge corruption
         of outputs AND fused dots is repaired from exchanged input halos
         (the same overlap-preserving structure as the sharded s-step CG)."""
@@ -897,26 +847,17 @@ class StencilOperator:
         v = self._view
         if v is None:
             return False
-        itemsize = jnp.dtype(self.options.entry_dtype).itemsize
         if v.get("kind") == "3d":
-            if self.partition.num_pieces > 1:
-                return False  # 3-D fused BiCGStab is single-shard (v1)
-            from ..ops.pallas.bicgstab3d import supports3d_bicgstab
-
-            return supports3d_bicgstab(v["Y"], v["Z"], v["offs3"], itemsize)
+            return self.partition.num_pieces == 1
         if self.partition.num_pieces > 1:
-            if self.mesh is None or v["Br"] < 16:
-                return False
-        from ..ops.pallas.bicgstab2d import bicgstab_supported
-
-        return bicgstab_supported(v["Br"], v["C"], v["offs"], itemsize)
+            return self.mesh is not None and v["Br"] >= 16
+        return True
 
     def make_fused_bicgstab_runner(self, num_iterations: int,
                                    donate: bool = False):
         """Whole-loop BiCGStab at 15 vector passes/iteration (60 B/unknown
-        at f32) via the three fused Pallas passes of
-        ops/pallas/bicgstab2d.py — vs 24 XLA-fused passes for the planner
-        transcription.  Contract:
+        at acc) via the three fused passes of ops/grid2d.py — vs 24 passes
+        for the planner transcription.  Contract:
         ``run(x, r, p, v, rt, rho, alpha, omega) ->
         (x, r, p, v, rho, alpha, omega, history)`` with history[0] =
         <r, r> on entry; exact continuation of the transcription
@@ -924,27 +865,24 @@ class StencilOperator:
         v = self._view
         if v.get("kind") == "3d":
             return self._make_bicgstab3d_runner(num_iterations, donate)
-        from ..ops.pallas.bicgstab2d import bicg_pv, bicg_st, bicg_update
+        from ..ops.grid2d import (
+            acc_dtype,
+            apply2d as _apply,
+            bicg_pv,
+            bicg_st,
+            bicg_update,
+            row_bandwidth,
+        )
         from .overlap import edge_missing
-        from .sstep_sharded import _apply
 
         C, Br, offs, vals = v["C"], v["Br"], v["offs"], v["vals"]
         S = self.partition.num_pieces
         sharded = S > 1
-        interpret = jax.default_backend() == "cpu"
         compensated = bool(self.options.compensated_dots)
-        kw = dict(offsets=offs, values=vals, interpret=interpret,
-                  compensated=compensated)
-        # reduction-order experiment knob (scripts/probe_rho_agreement.py):
-        # forcing a tile size changes ONLY the kernels' tile-sum order,
-        # leaving every vector value bit-identical — isolating reduction-
-        # order sensitivity of the carried scalars
-        tr_force = int(os.environ.get("LEGIONSOLVERS_BICG_TILE_ROWS", "0"))
-        if tr_force:
-            kw["tile_rows"] = tr_force
-        rlo = max(0, -min(dy for dy, _ in offs))
-        rhi = max(0, max(dy for dy, _ in offs))
+        kw = dict(offsets=offs, values=vals, compensated=compensated)
+        rlo, rhi = row_bandwidth(offs)
         dtype = jnp.dtype(self.options.entry_dtype)
+        acc = acc_dtype(dtype)
         coeff = lambda k, sl: jnp.asarray(vals[k], dtype)
 
         def exchange3(a, b, c, dlo, dhi):
@@ -968,7 +906,7 @@ class StencilOperator:
             return tops, bots
 
         def pad8(top, bot):
-            """[8, C] halo blocks in the kernels'/overlap.py's contract:
+            """[8, C] halo blocks in the passes'/overlap.py's contract:
             top real rows LAST, bottom real rows FIRST."""
             zt = jnp.zeros((8, C), dtype)
             zb = jnp.zeros((8, C), dtype)
@@ -982,17 +920,17 @@ class StencilOperator:
             return jax.lax.psum(s, SHARD_AXIS) if sharded else s
 
         def edge_dot(a_top, a_bot, miss_t, miss_b):
-            """sum(a_edge * miss) over both edges (f32)."""
-            f = jnp.float32(0)
+            """sum(a_edge * miss) over both edges (acc)."""
+            f = jnp.zeros((), acc)
             if miss_t is not None:
-                f = f + jnp.sum((a_top * miss_t).astype(jnp.float32))
+                f = f + jnp.sum((a_top * miss_t).astype(acc))
             if miss_b is not None:
-                f = f + jnp.sum((a_bot * miss_b).astype(jnp.float32))
+                f = f + jnp.sum((a_bot * miss_b).astype(acc))
             return f
 
         def t0_edges(s_loc_t, s_loc_b):
             """Zero-halo A(s) on the edge rows, recomputed in jnp from the
-            local edge strips (t never materializes in HBM): strips carry
+            local edge strips (t is never stored): strips carry
             rlo+rhi extra context rows."""
             t0t = t0b = None
             if rlo:
@@ -1010,8 +948,7 @@ class StencilOperator:
             if was_flat:
                 x, r, p, vv, rt = (a.reshape(Br, C)
                                    for a in (x, r, p, vv, rt))
-            f32 = jnp.float32
-            rho, alpha, omega = (jnp.asarray(s, f32)
+            rho, alpha, omega = (jnp.asarray(s, acc)
                                  for s in (rho, alpha, omega))
             # bootstrap dots (once per solve): <r, r> and <r~, r>
             if compensated:
@@ -1020,9 +957,9 @@ class StencilOperator:
                 rr0 = psum(dd_dot(r.reshape(-1), r.reshape(-1)))
                 rtr = psum(dd_dot(rt.reshape(-1), r.reshape(-1)))
             else:
-                rr0 = psum(jnp.sum((r * r).astype(f32)))
-                rtr = psum(jnp.sum((rt * r).astype(f32)))
-            hist = jnp.zeros(num_iterations + 1, f32).at[0].set(rr0)
+                rr0 = psum(jnp.sum((r * r).astype(acc)))
+                rtr = psum(jnp.sum((rt * r).astype(acc)))
+            hist = jnp.zeros(num_iterations + 1, acc).at[0].set(rr0)
 
             def body(i, carry):
                 x, r, p, vv, rho, alpha, omega, rtr, hist = carry
@@ -1104,13 +1041,13 @@ class StencilOperator:
                 ts = psum(ts0 + edge_dot(
                     s_loc_t[:rlo] if rlo else None,
                     s_loc_b[-rhi:] if rhi else None, mt_t, mt_b))
-                dtt = jnp.float32(0)
+                dtt = jnp.zeros((), acc)
                 if mt_t is not None:
                     dtt = dtt + jnp.sum(
-                        (2.0 * t0t * mt_t + mt_t * mt_t).astype(f32))
+                        (2.0 * t0t * mt_t + mt_t * mt_t).astype(acc))
                 if mt_b is not None:
                     dtt = dtt + jnp.sum(
-                        (2.0 * t0b * mt_b + mt_b * mt_b).astype(f32))
+                        (2.0 * t0b * mt_b + mt_b * mt_b).astype(acc))
                 tt = psum(tt0 + dtt)
                 omega = ts / tt
                 om2 = omega.astype(dtype)
@@ -1119,23 +1056,23 @@ class StencilOperator:
                     r, vv, x, p, rt, alpha, omega, **kw
                 )
                 # r' = s - omega t: edge correction delta = -omega * miss
-                drr = jnp.float32(0)
-                drtr = jnp.float32(0)
+                drr = jnp.zeros((), acc)
+                drtr = jnp.zeros((), acc)
                 if mt_t is not None:
                     d_t = -om2 * mt_t
                     r0e = s_loc_t[:rlo] - om2 * t0t
                     r = r.at[:rlo].add(d_t)
                     drr = drr + jnp.sum(
-                        (2.0 * r0e * d_t + d_t * d_t).astype(f32))
-                    drtr = drtr + jnp.sum((rt[:rlo] * d_t).astype(f32))
+                        (2.0 * r0e * d_t + d_t * d_t).astype(acc))
+                    drtr = drtr + jnp.sum((rt[:rlo] * d_t).astype(acc))
                 if mt_b is not None:
                     d_b = -om2 * mt_b
                     r0e = s_loc_b[-rhi:] - om2 * t0b
                     r = r.at[Br - rhi :].add(d_b)
                     drr = drr + jnp.sum(
-                        (2.0 * r0e * d_b + d_b * d_b).astype(f32))
+                        (2.0 * r0e * d_b + d_b * d_b).astype(acc))
                     drtr = drtr + jnp.sum(
-                        (rt[Br - rhi :] * d_b).astype(f32))
+                        (rt[Br - rhi :] * d_b).astype(acc))
                 rr = psum(rr0_ + drr)
                 rtr = psum(rtr0 + drtr)
                 hist = hist.at[i + 1].set(rr)
@@ -1183,20 +1120,17 @@ class StencilOperator:
 
     def _make_bicgstab3d_runner(self, num_iterations: int,
                                 donate: bool = False):
-        """3-D fused BiCGStab (single shard): the plane-streaming analogs
-        of the three 2-D passes (ops/pallas/bicgstab3d.py), 60 B/unknown.
-        Same contract as the 2-D runner."""
-        from ..ops.pallas.bicgstab3d import (
-            bicg3d_pv,
-            bicg3d_st,
-            bicg3d_update,
-        )
+        """3-D fused BiCGStab (single shard): the 3-D analogs of the three
+        2-D passes (ops/grid3d.py), 60 B/unknown.  Same contract as the 2-D
+        runner."""
+        from ..ops.grid2d import acc_dtype
+        from ..ops.grid3d import bicg3d_pv, bicg3d_st, bicg3d_update
 
         v = self._view
         Y, Z, Br = v["Y"], v["Z"], v["Br"]
-        interpret = jax.default_backend() == "cpu"
+        acc = acc_dtype(self.options.entry_dtype)
         compensated = bool(self.options.compensated_dots)
-        kw = dict(offsets=v["offs3"], values=v["vals"], interpret=interpret,
+        kw = dict(offsets=v["offs3"], values=v["vals"],
                   compensated=compensated)
 
         def local_run(x, r, p, vv, rt, rho, alpha, omega):
@@ -1204,8 +1138,7 @@ class StencilOperator:
             if was_flat:
                 x, r, p, vv, rt = (a.reshape(Br, Y, Z)
                                    for a in (x, r, p, vv, rt))
-            f32 = jnp.float32
-            rho, alpha, omega = (jnp.asarray(s, f32)
+            rho, alpha, omega = (jnp.asarray(s, acc)
                                  for s in (rho, alpha, omega))
             if compensated:
                 from ..ops.ddsum import dd_dot
@@ -1213,22 +1146,20 @@ class StencilOperator:
                 rr0 = dd_dot(r.reshape(-1), r.reshape(-1))
                 rtr = dd_dot(rt.reshape(-1), r.reshape(-1))
             else:
-                rr0 = jnp.sum((r * r).astype(f32))
-                rtr = jnp.sum((rt * r).astype(f32))
-            hist = jnp.zeros(num_iterations + 1, f32).at[0].set(rr0)
-            zplane = jnp.zeros((Y, Z), x.dtype)
+                rr0 = jnp.sum((r * r).astype(acc))
+                rtr = jnp.sum((rt * r).astype(acc))
+            hist = jnp.zeros(num_iterations + 1, acc).at[0].set(rr0)
 
             def body(i, carry):
                 x, r, p, vv, rho, alpha, omega, rtr, hist = carry
                 rho_new = rtr
                 beta = (rho_new / rho) * (alpha / omega)
-                p, vv, rtv = bicg3d_pv(
-                    r, p, vv, rt, beta, omega, zplane, zplane, **kw)
+                p, vv, rtv = bicg3d_pv(r, p, vv, rt, beta, omega, **kw)
                 alpha = rho_new / rtv
-                ts, tt = bicg3d_st(r, vv, alpha, zplane, zplane, **kw)
+                ts, tt = bicg3d_st(r, vv, alpha, **kw)
                 omega = ts / tt
                 x, r, rr, rtr = bicg3d_update(
-                    r, vv, x, p, rt, alpha, omega, zplane, zplane, **kw)
+                    r, vv, x, p, rt, alpha, omega, **kw)
                 hist = hist.at[i + 1].set(rr)
                 return x, r, p, vv, rho_new, alpha, omega, rtr, hist
 
@@ -1243,29 +1174,25 @@ class StencilOperator:
         dn = (0, 1, 2, 3) if donate else ()
         return jax.jit(local_run, donate_argnums=dn)
 
-    def _make_pallas3d_cg_runner(self, num_iterations: int, donate: bool = False):
-        """Fused CG over the 3-D plane-streaming kernels.  Where VMEM
-        allows, each iteration is a dual-stream ``xpay_pq`` pass (p = r +
-        beta p formed plane-by-plane in VMEM, <p, A p> fused; 12 B/elt) +
-        an ``update`` pass (20 B/elt) = 32 B/unknown/iteration; otherwise
-        the XLA xpay + ``pq`` + ``update`` schedule (36 B).  One p
-        halo-plane exchange per iteration.  Same contract as the 2-D
-        runner: run(x, r, p, rr0) -> (x, r, p, history)."""
-        from ..ops.pallas.stencil3d import (
+    def _make_grid3d_cg_runner(self, num_iterations: int, donate: bool = False):
+        """Fused CG over the 3-D grid view: each iteration is an ``xpay_pq``
+        pass (p = r + beta p, <p, A p>; 12 B/elt) + an ``update`` pass
+        (20 B/elt) = 32 B/unknown/iteration.  One r and p halo-plane
+        exchange per iteration.  Same contract as the 2-D runner:
+        run(x, r, p, rr0) -> (x, r, p, history)."""
+        from ..ops.grid2d import acc_dtype
+        from ..ops.grid3d import (
             grid3d_cg_pq,
             grid3d_cg_update,
             grid3d_cg_xpay_pq,
-            supports3d_xpay_pq,
         )
 
         v = self._view
         Y, Z, Br = v["Y"], v["Z"], v["Br"]
         S = self.partition.num_pieces
         sharded = S > 1
-        interpret = jax.default_backend() == "cpu"
-        kw = dict(offsets=v["offs3"], values=v["vals"], interpret=interpret)
-        itemsize = jnp.dtype(self.options.entry_dtype).itemsize
-        fuse_xpay = supports3d_xpay_pq(Y, Z, itemsize)
+        acc = acc_dtype(self.options.entry_dtype)
+        kw = dict(offsets=v["offs3"], values=v["vals"])
 
         def psum(s):
             return jax.lax.psum(s, SHARD_AXIS) if sharded else s
@@ -1283,11 +1210,7 @@ class StencilOperator:
         def body(i, carry):
             x, r, p, rr, rr_prev, hist = carry
             beta = (rr / rr_prev).astype(p.dtype)
-            if not fuse_xpay:
-                p = r + beta * p
-                x, r, rr_new, hist = half_step(x, r, p, rr, hist, i + 1)
-                return x, r, p, rr_new, rr, hist
-            # dual-stream pass: combined p halo = r_halo + beta * p_halo
+            # p's halo planes = r_halo + beta * p_halo
             rt, rb = self._exchange_planes3d(r, sharded=sharded)
             pt, pb = self._exchange_planes3d(p, sharded=sharded)
             pn_t = rt + beta * pt
@@ -1306,8 +1229,8 @@ class StencilOperator:
             was_flat = x.ndim == 1
             if was_flat:
                 x, r, p = (a.reshape(Br, Y, Z) for a in (x, r, p))
-            rr0 = jnp.asarray(rr0, jnp.float32)
-            hist = jnp.zeros(num_iterations + 1, jnp.float32).at[0].set(rr0)
+            rr0 = jnp.asarray(rr0, acc)
+            hist = jnp.zeros(num_iterations + 1, acc).at[0].set(rr0)
             # prologue: iteration 0 uses the incoming p unchanged
             x, r, rr, hist = half_step(x, r, p, rr0, hist, 1)
             x, r, p, rr, _, hist = jax.lax.fori_loop(
@@ -1338,16 +1261,15 @@ class StencilOperator:
                     donate_argnums=dn,
                 )
                 fns[x.ndim] = fn
-            return fn(x, r, p, jnp.asarray(rr0, jnp.float32))
+            return fn(x, r, p, jnp.asarray(rr0, acc))
 
         return runner
 
     def _make_jnp_cg_runner(self, num_iterations: int, donate: bool = False):
-        """Fallback whole-loop CG runner for geometries/dtypes without the
-        Pallas view (3-D grids, fp64 goldens, padded tails): the classic
-        6-op schedule with the matvec recomputed per iteration, compiled as
-        one ``fori_loop`` so dispatch overhead is amortized exactly like the
-        Pallas path.  Arithmetic order matches ``CGSolver.step`` (the
+        """Whole-loop CG runner for operators without the grid view (1-D,
+        4-D+, padded tails): the classic 6-op schedule with the matvec
+        recomputed per iteration, compiled as one ``fori_loop`` so dispatch
+        overhead is amortized like the other runners.  Arithmetic order matches ``CGSolver.step`` (the
         reference recurrence, CGSolver.hpp:46-55), so the fp64 golden
         trajectory is preserved bit-for-bit."""
         S = self.partition.num_pieces
@@ -1419,7 +1341,7 @@ class StencilOperator:
                 partition=self.partition,
                 mesh=self.mesh,
                 options=self.options,
-                use_pallas=self._view is not None,
+                grid_view=self._view is not None,
             )
         return self._transpose_op
 

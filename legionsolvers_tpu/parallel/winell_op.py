@@ -1,21 +1,17 @@
-"""Windowed-ELL operator: the device fast path for general sparse matrices.
-
-Round 3 left one capability hole vs the reference: explicit matrices that
-fail the DIA gate (genuinely scattered sparsity) fell to an XLA-gather ELL
-measured at 0.11 Gnnz/s on chip — ~480x below the DIA path, where the
-reference's cuSPARSE SpMV has no cliff (reference: CSRMatrixTasks.cu:14-156,
-COOMatrixTasks.cu:12-146).  This operator closes it for matrices whose rows
-can be banded at build time (which `parallel/reorder.py` arranges via RCM):
+"""Windowed-ELL operator for general sparse matrices whose rows can be
+banded at build time (which `parallel/reorder.py` arranges via RCM); the
+reference runs these through cuSPARSE (reference: CSRMatrixTasks.cu:14-156,
+COOMatrixTasks.cu:12-146):
 
 * host packer (:func:`plan_winell`): ELL layout with column-sorted slots,
-  one 1024-aligned x window per (row-tile, slot), window starts in a scalar
-  array; eligibility = the largest (tile, slot) column span fits
+  one 1024-aligned x window per (row-tile, slot), window starts in an
+  index array; eligibility = the largest (tile, slot) column span fits
   ``MAX_WINDOW_ROWS`` chunks of 128;
-* device kernel (:func:`~legionsolvers_tpu.ops.pallas.winell.winell_spmv`):
-  static chunk sweep of one-vreg gathers (~4*KR VPU ops/nonzero).
+* device side (:func:`~legionsolvers_tpu.ops.gather.winell_spmv`): one
+  gather over the windows.
 
 This operator is the single-piece form; SHARDED systems get the same
-kernel through :class:`~legionsolvers_tpu.parallel.distmatrix.RowPartitionedMatrix`,
+layout through :class:`~legionsolvers_tpu.parallel.distmatrix.RowPartitionedMatrix`,
 which plans per-shard windows over a banded-ordered extended (halo) buffer
 (``_plan_sharded_winell``) and falls back to the XLA-gather ELL only when a
 shard's spans exceed the window cap.
@@ -25,27 +21,18 @@ from __future__ import annotations
 
 from typing import Optional
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..options import SolverOptions, DEFAULT_OPTIONS
 from ..core.partition import BlockPartition
-from ..ops.pallas.winell import MAX_WINDOW_ROWS, winell_spmv
+from ..ops.gather import MAX_WINDOW_ROWS, winell_spmv
 
 TILE_ROWS_OF_128 = 32  # Rt: output tile = Rt*128 rows
 
 
-# cost-model constants for the tile-size choice, calibrated on chip
-# (scripts/probe_winell.py sweep, 2026-08-21, v5e): the kernel's chunk
-# sweep costs ~4*KR VPU ops per ELL slot element (measured: permlap Rt=8
-# KR=24 -> 1.24 ms for N*L*(4*24+3) model ops = 1.48 ms; randband Rt=8
-# 7.0 vs 7.7 ms), and window DMA issue is cheap (Rt=8's 4x DMA count beat
-# Rt=32 3.6x on permlap -> t_issue << 100 ns).  Smaller tiles shrink
-# per-(tile, slot) window spans (hence KR); larger tiles only win when the
-# span is bandwidth-dominated (KR independent of Rt).
-_VPU_OPS_PER_SEC = 1.4e12
-_DMA_ISSUE_SEC = 2e-8
+# tile heights (rows of 128) tried in order: smaller tiles have tighter
+# per-(tile, slot) column spans, so the first that fits the window cap wins
 _RT_CANDIDATES = (8, 16, 32, 64)
 
 
@@ -69,10 +56,8 @@ def plan_winell(
     int32, cols [nt, L, Rt, 128] int32 (window-local), vals [...] in
     ``dtype``, window_rows KR.  Duplicate (row, col) entries are summed
     (COO semantics, like the reference's reduction-accessor SpMV output,
-    COOMatrixTasks.cpp:38-39).  The tile height Rt (in rows of 128) is
-    chosen by a measured cost model unless forced: per-(tile, slot) window
-    spans shrink with the tile (fewer gather chunks = less VPU work) while
-    the window DMA count grows.
+    COOMatrixTasks.cpp:38-39).  The tile height Rt (in rows of 128) is the
+    smallest candidate whose window spans fit the cap, unless forced.
     """
     N0 = max(padded_size, 1024)
     # window (x) space may exceed the row space: sliced-ELL classes plan a
@@ -168,20 +153,12 @@ def plan_winell(
             return None
         Rt = tile_rows_of_128
     else:
-        best = None
-        for cand in _RT_CANDIDATES:
-            geo_c = window_geometry(cand)
-            if geo_c is None:
-                continue
-            N_c, nt_c, _, KR_c = geo_c
-            compute = N_c * L * (4 * KR_c + 3) / _VPU_OPS_PER_SEC
-            dma = nt_c * (L + 3) * _DMA_ISSUE_SEC
-            cost = compute + dma
-            if best is None or cost < best[0]:
-                best = (cost, cand, geo_c)
-        if best is None:
+        for Rt in _RT_CANDIDATES:
+            geo = window_geometry(Rt)
+            if geo is not None:
+                break
+        else:
             return None
-        Rt, geo = best[1], best[2]
     N_x, nt, ws, KR = geo
     TR = Rt * 128
 
@@ -193,7 +170,7 @@ def plan_winell(
     ell_vals[ts, r % TR] = v.astype(dtype)
     ws2 = ws.reshape(nt, L).astype(np.int32)
     ntp = -(-nt // 8) * 8
-    if ntp != nt:  # Mosaic SMEM blocks need 8-divisible row counts
+    if ntp != nt:  # window-start rows padded to a multiple of 8
         ws2 = np.concatenate([ws2, np.zeros((ntp - nt, L), np.int32)])
     return {
         "N": N_x,                 # x padding (window space)
@@ -208,7 +185,7 @@ def plan_winell(
 
 
 class WinEllOperator:
-    """y = A @ x on the windowed-gather kernel (single piece).
+    """y = A @ x over the windowed-ELL layout (single piece).
 
     Build via :func:`plan_winell` + constructor, or let the planner route
     here through the RCM reorder gate (``parallel/reorder.py``).
@@ -244,7 +221,6 @@ class WinEllOperator:
         self.ell_cols = jnp.asarray(plan["cols"])
         self.ell_vals = jnp.asarray(plan["vals"])
         self.row_length = plan["row_length"]
-        self._interpret = jax.default_backend() == "cpu"
         self._transpose_op = None
 
     # ------------------------------------------------------------------
@@ -263,10 +239,6 @@ class WinEllOperator:
     def supports_matvec_dot(self) -> bool:
         return False
 
-    @property
-    def uses_pallas(self) -> bool:
-        return True
-
     # ------------------------------------------------------------------
     def device_state(self):
         return (self.wstart, self.ell_cols, self.ell_vals)
@@ -281,7 +253,7 @@ class WinEllOperator:
             x = jnp.pad(x, (0, self._N - P))
         y = winell_spmv(
             x.reshape(-1, 128), self.wstart, self.ell_cols, self.ell_vals,
-            window_rows=self._KR, interpret=self._interpret,
+            window_rows=self._KR,
         ).reshape(-1)
         return y[:P] if self._N != P else y
 
@@ -289,7 +261,7 @@ class WinEllOperator:
         return y + self.matvec(x)
 
     def transpose(self) -> "WinEllOperator":
-        """A^T on the same kernel (fresh packing of the swapped pattern; the
+        """A^T in the same layout (fresh packing of the swapped pattern; the
         reference stubs rmatvec, COOMatrixTasks.cpp:78-83)."""
         if self._transpose_op is None:
 
@@ -318,11 +290,11 @@ def plan_winell_classes(
     max_classes: int = 6,
     min_fill: float = 1 / 16,
 ):
-    """Sliced-ELL planning (round 5, r4 verdict item 3): per-1024-row-block
-    slot counts instead of one global L.
+    """Sliced-ELL planning: per-1024-row-block slot counts instead of one
+    global L.
 
-    Uniform-L ELL pays the MAX row degree for every row — the round-4
-    randband row wasted 3.3x (L = 26 slots vs mean 8 nnz/row).  Windows are
+    Uniform-L ELL pays the MAX row degree for every row (a random banded
+    matrix with mean 8 nnz/row can have L = 26 slots).  Windows are
     a per-tile property, so BLOCKS of 1024 rows can be reordered by degree
     without touching the window spans: blocks are packed into <= 6
     contiguous degree classes, each planned independently with its own L
@@ -433,7 +405,6 @@ class SlicedWinEllOperator:
             sum(nb_c * p["row_length"] for nb_c, p in plan["classes"])
             / max(plan["nb"], 1)
         )
-        self._interpret = jax.default_backend() == "cpu"
         self._transpose_op = None
 
     @property
@@ -451,10 +422,6 @@ class SlicedWinEllOperator:
     def supports_matvec_dot(self) -> bool:
         return False
 
-    @property
-    def uses_pallas(self) -> bool:
-        return True
-
     def device_state(self):
         return (self.class_arrays, self.newpos)
 
@@ -470,10 +437,7 @@ class SlicedWinEllOperator:
         parts = []
         for (nb_c, KR), (ws, pc, pv) in zip(self._class_meta,
                                             self.class_arrays):
-            y_c = winell_spmv(
-                x2d, ws, pc, pv, window_rows=KR,
-                interpret=self._interpret,
-            ).reshape(-1)
+            y_c = winell_spmv(x2d, ws, pc, pv, window_rows=KR).reshape(-1)
             parts.append(y_c[: nb_c * 1024])
         y_shuf = jnp.concatenate(parts)
         # un-shuffle the 1024-row blocks (one row-gather pass)

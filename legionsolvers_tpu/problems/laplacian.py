@@ -1,6 +1,6 @@
 """Example-system generators: 1-D negative Laplacian in COO and CSR form.
 
-TPU-native analog of the reference's ``ExampleSystems``
+JAX analog of the reference's ``ExampleSystems``
 (reference: ExampleSystems.hpp/.cpp).  The reference index-launches fill
 tasks that compute the matrix entries analytically per nonzero; here the same
 closed-form fill runs vectorized in numpy on the host (matrix build is a

@@ -1,6 +1,6 @@
 """General N-D stencil -> sparse matrix generators.
 
-TPU-native analog of the reference's ``StencilGenerator``
+JAX analog of the reference's ``StencilGenerator``
 (reference: StencilGenerator.hpp:270-643, StencilGenerator.cpp).  A stencil
 is a list of ``(offset_vector, entry_value)`` pairs over an N-D grid; the
 matrix has ``A[p, p+o] = v`` for every grid point ``p`` with ``p+o`` in
@@ -10,9 +10,9 @@ the linearized-CSR factory that BenchmarkStencil drives.
 
 Where the reference index-launches fill tasks that enumerate grid points and
 skip to their owned kernel range (with a bulk-slice fast-forward optimization,
-StencilGenerator.cpp:464-516), the TPU build generates the arrays vectorized
+StencilGenerator.cpp:464-516), this library generates the arrays vectorized
 on the host in O(nnz); the scalable no-materialization path for huge grids is
-the DIA :class:`~legionsolvers_tpu.parallel.stencil_op.StencilOperator`,
+the matrix-free :class:`~legionsolvers_tpu.parallel.stencil_op.StencilOperator`,
 which never stores per-nonzero data at all.
 
 Benchmark stencils (reference: BenchmarkStencil.cpp:24-137): 1-D 3-point,

@@ -1,7 +1,7 @@
 """BiCGStab solver (preconditioner-free).
 
 Transcription of the reference's ``BiCGStabSolver<T>``
-(reference: BiCGStabSolver.hpp:13-84) onto the TPU planner: same vector
+(reference: BiCGStabSolver.hpp:13-84) onto the JAX planner: same vector
 indices (SOL=0, RHS=1, P=2, R=3, R_TILDE=4, U=5, V=6), same rho/alpha/omega
 recurrences carried as deferred Scalars, two matvecs per step.  ``solve``
 compiles the iteration once and scans it, tracking ||r||^2 per step.
@@ -93,8 +93,8 @@ class BiCGStabSolver:
         return self.planner.dot(self.R, self.R)
 
     def _make_fused_runner(self, num_iterations: int):
-        """Fused whole-iteration runner (three Pallas passes, 60 B/unknown;
-        ops/pallas/bicgstab2d.py) for single-space systems driven by one
+        """Fused whole-iteration runner (three passes, 60 B/unknown;
+        ops/grid2d.py, ops/grid3d.py) for single-space systems driven by one
         diagonal-block operator that supports it.  ``r~`` is passed as the
         RHS data directly (R_TILDE is always a copy of b in this solver, so
         its workspace slot stays unmaterialized).  Returns None when the
@@ -126,9 +126,9 @@ class BiCGStabSolver:
         (length num_iterations + 1, starting with the initial residual).
 
         Single-space single-operator stencil systems run on the fused
-        three-pass Pallas schedule (15 vector passes/iteration vs 24 for
-        the XLA-fused transcription); the U workspace vector is then left
-        untouched (s and t = A s never materialize in HBM)."""
+        three-pass schedule (15 vector passes/iteration vs 24 for the
+        transcription); the U workspace vector is then left untouched (s and
+        t = A s are never stored)."""
         self.planner.to_solver_basis()
         try:
             return self._solve_in_basis(num_iterations, use_jit)

@@ -1,7 +1,7 @@
 """Conjugate Gradient solver over the planner algebra.
 
 Transcription of the reference's ``CGSolver<T>`` (reference: CGSolver.hpp:13-57)
-onto the TPU planner: same vector indices (SOL=0, RHS=1, P=2, Q=3, R=4), same
+onto the JAX planner: same vector indices (SOL=0, RHS=1, P=2, Q=3, R=4), same
 future-ratio coefficient passing (2-future and 3-future axpy, 2-future xpay),
 same residual-norm-squared history.  Where the reference's ``step()`` issues
 an async task DAG per iteration, here ``step()`` traces the same DAG into XLA
@@ -77,7 +77,7 @@ class CGSolver:
 
     def _make_fused_runner(self, num_iterations: int):
         """Fused whole-iteration runner.  Single space: the operator's own
-        fused schedule (two-pass / s-step / 3-D Pallas, 32 / 12 B/unknown/
+        fused schedule (two-pass / s-step / 3-D, 32 / 12 B/unknown/
         iter).  Multi-space block-diagonal systems (the reference's
         benchmark stress config, BenchmarkStencil.cpp:201-207): per-space
         fused phases with cross-space scalar sums
@@ -115,7 +115,7 @@ class CGSolver:
         leaves the planner holding the final vectors.
 
         When the planner topology allows it, iterations run on the fused
-        two-pass Pallas path (q = A p never touches HBM); the Q workspace
+        fused path (q = A p is never stored); the Q workspace
         vector is then left untouched rather than holding the last A p.
         """
         planner = self.planner
@@ -193,9 +193,8 @@ class CGSolver:
 
         rr0 = self.residual_norm_squared[-1].value
         # fori_loop with an in-place history buffer, not lax.scan: scan's
-        # carry double-buffering cannot alias across the Pallas custom-call
-        # boundary and costs an extra copy of every carried vector per
-        # iteration (measured ~0.2 ms at n=16.7M)
+        # carry double-buffering costs an extra copy of every carried
+        # vector per iteration
         def run_impl(state, rr0):
             history = jnp.zeros(num_iterations + 1, dtype=jnp.asarray(rr0).dtype)
             history = history.at[0].set(rr0)

@@ -48,7 +48,9 @@ def _least_squares_givens(H: jnp.ndarray, beta: jnp.ndarray) -> jnp.ndarray:
     # back-substitution on the upper-triangular m x m block
     y = jnp.zeros(m, dtype=H.dtype)
     for i in range(m - 1, -1, -1):
-        resid = g[i] - jnp.dot(R[i, i + 1 :], y[i + 1 :]) if i + 1 < m else g[i]
+        resid = (g[i] - jnp.dot(R[i, i + 1 :], y[i + 1 :],
+                                precision=jax.lax.Precision.HIGHEST)
+                 if i + 1 < m else g[i])
         diag = R[i, i]
         y = y.at[i].set(jnp.where(jnp.abs(diag) > 0, resid / jnp.where(jnp.abs(diag) > 0, diag, 1), 0.0))
     return y
@@ -127,13 +129,12 @@ class GMRESSolver:
         """Batched-basis GMRES(m) cycle for single-space, single-operator
         systems: the Krylov basis lives in ONE (m+1, n) array and
         orthogonalization is CGS2 (classical Gram-Schmidt applied twice) —
-        all j+1 projection coefficients come from a single ``V @ w`` matmul
-        (MXU reduction, one sweep of the basis) and the update is one
+        all j+1 projection coefficients come from a single ``V @ w`` product
+        (one sweep of the basis) and the update is one
         rank-(j+1) ``h @ V`` matmul, instead of the planner path's j+1
         sequential dot+axpy round trips (reference analog: the MGS loop of
         GMRESSolver.hpp:92-107, whose per-vector task launches Legion could
-        at least overlap; one jitted XLA program cannot, so batching is the
-        TPU-native fix).  CGS2 is numerically equivalent to MGS for
+        at least overlap; one jitted XLA program cannot, so it batches).  CGS2 is numerically equivalent to MGS for
         well-conditioned bases ("twice is enough", Giraud et al. 2005).
         Returns None when the topology doesn't allow it."""
         planner = self.planner

@@ -1,6 +1,6 @@
 """Debug / observability utilities.
 
-TPU-native analog of the reference's logging & debug machinery:
+JAX analog of the reference's logging & debug machinery:
 ``print_index_partition`` (reference: LegionUtilities.cpp:24-69 +
 PrintIndexTask, UtilityTasks.cpp:102-125) emits the exact line format the
 reference's golden harness parses ("<name> (<piece>) <<index>>"), so output

@@ -1,6 +1,6 @@
 """Library initialization & capability banner.
 
-TPU-native analog of the reference's ``LegionSolvers::initialize``
+JAX analog of the reference's ``LegionSolvers::initialize``
 (reference: Initialize.cpp:20-487).  The reference's initialize does three
 jobs: print a capability banner (:22-66), register the mapper + sharding
 functor (:68-75), and statically preregister every task instantiation over
@@ -56,7 +56,7 @@ def initialize(print_info: bool = True, verbose: bool = False) -> None:
         # flag tiers (SURVEY §5 "Config / flag system"); each LEGIONSOLVERS_
         # NO_* disables one fast path and falls back to the next-generic one
         switches = (
-            "NO_PALLAS", "NO_DIA", "NO_RCM", "NO_WINELL", "NO_SLICED_ELL",
+            "NO_DIA", "NO_RCM", "NO_WINELL", "NO_SLICED_ELL",
             "NO_GENSPMV", "NO_SSTEP", "NO_FUSED_BICGSTAB",
             "NO_BLOCK_FUSED", "NO_DONATE", "NO_NATIVE",
         )

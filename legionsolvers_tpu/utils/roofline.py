@@ -1,4 +1,4 @@
-"""Shared HBM-traffic model for solver benchmarks.
+"""Shared memory-traffic model for solver benchmarks.
 
 One bytes-per-iteration accounting used by BOTH benchmark drivers (bench.py
 and legionsolvers_tpu/benchmark.py) so they report the same "% of streaming
@@ -6,7 +6,7 @@ roofline" for the same configuration — the analog of the reference's single
 ms/iteration metric definition (reference: test/BenchmarkStencil.cpp:255-262,
 bench_all.py:206).
 
-The model counts HBM bytes moved per *unknown* per iteration for the schedule
+The model counts device-memory bytes moved per *unknown* per iteration for the schedule
 the solver will actually execute, assuming the matrix-free stencil operator
 (O(1) matrix bytes).  Vector element size is taken from the dtype.  Counts
 are per logical pass: each vector read or write of length n costs
@@ -14,14 +14,12 @@ are per logical pass: each vector read or write of length n costs
 
 CG schedules (see solvers/cg.py, parallel/stencil_op.py):
 
-* ``fused2d_x2`` — s-step (s=2) schedule: ONE Pallas pass per TWO CG
+* ``fused2d_x2`` — s-step (s=2) schedule: ONE kernel pass per TWO CG
   iterations (read x/r/p, write x/r/p; Ap, A^2p, Ar and the next step's
-  Gram matrix formed in VMEM) -> 6 passes / 2 iters = 12 B/unknown at f32.
-* ``fused2d``  — two Pallas passes/iter: xpay_pq (read r + p_old, write p =
-  3 passes) + update (read p/x/r, write x/r = 5); q = A p never in HBM -> 8
-  passes = 32 B/unknown at f32.
-* ``fused3d``  — XLA xpay (3) + pq pass (1) + update pass (5) = 9 passes
-  = 36 B/unknown.
+  Gram matrix never stored) -> 6 passes / 2 iters = 12 B/unknown at f32.
+* ``fused2d`` / ``fused3d`` — two passes/iter: xpay_pq (read r + p_old,
+  write p = 3 passes) + update (read p/x/r, write x/r = 5); q = A p never
+  stored -> 8 passes = 32 B/unknown at f32.
 * ``fused_jnp`` — whole-loop jnp runner: matvec+pq dot (read p, write q,
   dot reuses the pass: 2), x axpy (3), r axpy (3), rr dot (1), p xpay (3)
   = 12 passes = 48 B/unknown.
@@ -29,8 +27,7 @@ CG schedules (see solvers/cg.py, parallel/stencil_op.py):
   reads) = 14 passes = 56 B/unknown.
 
 BiCGStab (solvers/bicgstab.py ``step``, assuming XLA fuses the adjacent
-axpy/xpay pairs — validated against the compiler's own traffic accounting
-by scripts/audit_traffic.py): rho dot (2), p update (4), matvec V (2),
+axpy/xpay pairs): rho dot (2), p update (4), matvec V (2),
 r_tilde.V dot (2), R axpy (3), U = A R via matvec_dot with <R, U> fused
 into the kernel (2), U.U dot (1), two SOL axpys (4), R axpy (3), residual
 dot (1) = 24 passes = 96 B/unknown when the operator fuses SpMV+dot, 25
@@ -46,9 +43,8 @@ from __future__ import annotations
 
 CG_PASSES = {
     "fused2d_x2": 3,  # s-step: read x/r/p + write x/r/p per TWO iterations
-    "fused2d": 8,
-    "fused3d_xp": 8,  # dual-stream xpay_pq (12) + update (20)
-    "fused3d": 9,     # XLA xpay (12) + pq (4) + update (20)
+    "fused2d": 8,     # xpay_pq (12) + update (20)
+    "fused3d": 8,
     "fused_jnp": 12,
     "classic": 14,
 }
@@ -66,13 +62,11 @@ def _sstep_refresh_passes() -> float:
 
 
 def operator_matvec_passes(op) -> int:
-    """Vector-length HBM passes one y = A x costs for this operator: read x
+    """Vector-length passes one y = A x costs for this operator: read x
     + write y = 2 for matrix-free stencils; + D coefficient streams for the
     explicit-DIA operator; + 2L index/value streams for the ELL layout."""
-    if hasattr(op, "_view") and type(op).__name__ == "DiaOperator":
-        v = op._view
-        d = len(v["offs"]) if v is not None else len(op.flat_offsets)
-        return 2 + d
+    if type(op).__name__ == "DiaOperator":
+        return 2 + len(op.flat_offsets)
     if type(op).__name__ == "RowPartitionedMatrix":
         return 2 + 2 * op.row_length
     return 2
@@ -84,10 +78,6 @@ def _op_cg_kind(op) -> str:
     if view is None:
         return "fused_jnp"
     if view.get("kind") == "3d":
-        from ..ops.pallas.stencil3d import supports3d_xpay_pq
-
-        if supports3d_xpay_pq(view["Y"], view["Z"]):
-            return "fused3d_xp"
         return "fused3d"
     # the s-step schedule needs >= 2 iterations; benchmark runs always
     # qualify, a single step() falls back to fused2d with the same
@@ -180,13 +170,10 @@ def solver_bytes_per_iteration(solver, n: int) -> tuple[float, str]:
     # ELL index/value slabs), charged once per matvec in the schedule
     extra = max((operator_matvec_passes(op) - 2 for op in ops), default=0)
     if name == "PCGSolver":
-        # XLA-audited step traffic (scripts/audit_traffic.py): the naive
-        # pass count is 17 (matvec_dot 2, x axpy 3, r axpy 3, z apply 3,
-        # rz dot 2, rr dot 1, p xpay 3), but the compiler fuses the whole
-        # elementwise tail into the matvec/update passes — cost analysis
-        # reports 6.0 passes (24 B/unknown at f32).  The solve-loop path
-        # measures ~10 passes on chip (loop-boundary state carries); the
-        # audited step count is the principled SOL.
+        # the naive pass count is 17 (matvec_dot 2, x axpy 3, r axpy 3,
+        # z apply 3, rz dot 2, rr dot 1, p xpay 3), but XLA fuses the
+        # elementwise tail into the matvec/update passes: 6 passes (24
+        # B/unknown at f32) is the least the step can move.
         return (6 + 2 * extra) * itemsize * n, "pcg_jacobi"
     if name == "CGSolver":
         sched = cg_schedule(solver)
@@ -202,7 +189,7 @@ def solver_bytes_per_iteration(solver, n: int) -> tuple[float, str]:
             diagonal_block_ops,
         )
 
-        # three-pass Pallas schedule (ops/pallas/bicgstab2d.py): pv 6 +
+        # three-pass schedule (ops/grid2d.py bicg_*): pv 6 +
         # st 2 + upd 7 = 15 passes (60 B/unknown at f32); block systems
         # run it per space (same per-unknown traffic) when every space's
         # operator supports it
@@ -231,65 +218,3 @@ def solver_bytes_per_iteration(solver, n: int) -> tuple[float, str]:
         return passes * itemsize * n, label
     raise ValueError(f"no traffic model for {name}")
 
-
-# ---------------------------------------------------------------------------
-# VPU compute roofline (the axis that actually binds the s-step kernel).
-#
-# Round-3 profile finding (scripts/profile_sstep.py, committed in
-# PROFILE_r03.md): the step2 pass streams at ~438-468 GB/s while a
-# same-traffic triad achieves 652 GB/s of the 687 GB/s measured roofline —
-# the pass is VPU-compute-bound.  "Fraction of the STREAMING roofline" then
-# under-promises what is achievable; the binding bound is
-# max(stream_time, compute_time).  The compute model below counts VPU
-# operations per element analytically and converts with rates measured by
-# an INDEPENDENT probe (scripts/probe_vpu.py, committed as VPU_RATES.json),
-# so the bound is auditable rather than fitted to the kernel itself.
-# ---------------------------------------------------------------------------
-
-def sstep_vpu_op_counts(offsets, values) -> dict:
-    """Per-element VPU op counts for ONE step2 pass (TWO CG iterations).
-
-    Counts (see ops/pallas/stencil2d._sstep_call kernel body):
-    * 5 stencil applications (Ap, Au, Ap'', A**2 p'', Ar''), each costing
-      per offset: 1 arith (add/sub for +-1 coefficients, 2 for general), a
-      lane roll when dx != 0, a sublane row shift when dy != 0;
-    * 3 mask multiplies (the out-of-grid/pad re-zeroing between chained
-      applications; the mask itself lives in scratch since r3);
-    * ~13 linear-combination ops (u3, rn, pn, x'' updates);
-    * 10 Gram dots: 1 multiply + ~1 reduce-add each.
-    """
-    n_apply = 5
-    arith = rolls = rows = 0
-    for (dy, dx), v in zip(offsets, values):
-        arith += 1 if v in (1.0, -1.0) else 2
-        rolls += 1 if dx != 0 else 0
-        rows += 1 if dy != 0 else 0
-    return {
-        "arith": n_apply * arith + 3 + 13 + 20,
-        "roll": n_apply * rolls,
-        "row": n_apply * rows,
-    }
-
-
-def compute_seconds_per_element(op_counts: dict, rates: dict) -> float:
-    """Seconds/element from op counts and probe_vpu.py rates.
-
-    ``rates``: {"vpu_fma_ops_per_s": flops/s of a pure fma chain,
-    "vpu_roll_plus_add_reps_per_s", "vpu_row_shift_add_reps_per_s"}.
-    An 'arith' op is charged at half the fma flop rate (1 instruction);
-    roll/row are charged at their measured rep rates minus the bundled
-    add's cost."""
-    t_arith = 1.0 / (rates["vpu_fma_ops_per_s"] / 2.0)
-    t_roll = max(1.0 / rates["vpu_roll_plus_add_reps_per_s"] - t_arith, 0.0)
-    t_row = max(1.0 / rates["vpu_row_shift_add_reps_per_s"] - t_arith, 0.0)
-    return (op_counts["arith"] * t_arith + op_counts["roll"] * t_roll
-            + op_counts["row"] * t_row)
-
-
-def sstep_compute_seconds_per_iteration(offsets, values, n, rates) -> float:
-    """Compute-roofline seconds per CG ITERATION for the s-step schedule
-    (one pass = two iterations)."""
-    per_elt = compute_seconds_per_element(
-        sstep_vpu_op_counts(offsets, values), rates
-    )
-    return per_elt * n / 2.0

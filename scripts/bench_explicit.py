@@ -1,14 +1,13 @@
-"""On-chip benchmark: CG with EXPLICIT sparse matrices (DIA vs ELL).
+"""GPU benchmark: CG with EXPLICIT sparse matrices (DIA vs ELL).
 
 The reference's core compute path is cuSPARSE SpMV over explicit CSR/COO
-(reference: CSRMatrixTasks.cu:14-156); this measures the TPU-native
+(reference: CSRMatrixTasks.cu:14-156); this measures this library's
 equivalents on the same problem as bench.py (2-D 5-pt negative Laplacian,
-f32, one chip):
+f32, one GPU):
 
-* planner auto-upgrade -> DiaOperator (Pallas variable-coefficient stencil,
-  (2+D)*4 B/elt matvec traffic);
+* planner auto-upgrade -> DiaOperator ((2+D)*4 B/elt matvec traffic);
 * prefer_dia=False      -> RowPartitionedMatrix (jnp ELL gather);
-* the matrix-free StencilOperator for the ratio VERDICT r1 #2 asks for.
+* the matrix-free StencilOperator for the ratio.
 
 Usage: python scripts/bench_explicit.py [n_grid] (default 4096)
 """
@@ -114,10 +113,9 @@ def main():
                      f"explicit DIA n={n_grid}^2", bw)
     print(f"[explicit] DIA / matrix-free ratio: {t_dia/t_free:.2f}x",
           flush=True)
-    # The ELL whole-loop runner peaks ~24 GB HBM at n=4096^2 (index+value
-    # slabs plus the gathered [n, L] product) — beyond the 16 GB chip, so
-    # the ELL leg runs at n/2 per side (its B/unknown model normalizes the
-    # comparison; the measured Gnnz/s is size-independent in this regime).
+    # The ELL leg runs at n/2 per side (index+value slabs plus the gathered
+    # [n, L] product make it the largest footprint; its B/unknown model
+    # normalizes the comparison).
     n_ell = min(n_grid, 2048)
     nnz_ell = 5 * n_ell * n_ell - 4 * n_ell
     t_ell = bench_cg(build(n_ell, True, False, options), nnz_ell,

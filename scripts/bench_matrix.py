@@ -1,12 +1,16 @@
-"""Full reference benchmark matrix on one chip + max-size discovery.
+"""Full reference benchmark matrix on one GPU + max-size discovery.
 
 The analog of the reference's recorded per-node-count scaling tables
 (reference: bench_all_ls.py:365-494 pins the max problem size per node count
 and sweeps dims 1-4 x {CG, BiCGStab, GMRES(10)}).  This runs the same 12
-configurations on the attached chip at a fixed comparison size (n ~= 16.7M,
+configurations on the attached GPU at a fixed comparison size (n ~= 16.7M,
 f32) via the BenchmarkStencil-equivalent CLI, then discovers the max CG
-problem size per dim by doubling until the chip OOMs, and writes the results
-table to RESULTS.md.
+problem size per dim by doubling until the device runs out of memory, and
+can write the results table to a markdown file.
+
+Every configuration (and the bandwidth probe) runs in its own child
+process, one at a time: one JAX process holds the card, and this parent
+never imports JAX.
 
 Usage:
   python scripts/bench_matrix.py            # 12-config matrix
@@ -36,10 +40,8 @@ _BW = [None]  # parent-measured stream bandwidth, forwarded to subprocesses
 
 
 def run_config(argv, timeout=1500):
-    """One benchmark config in its OWN subprocess: a crash/OOM in one
-    config poisons the TPU client for the rest of the process (observed:
-    after any JaxRuntimeError every later call in-process fails with
-    INVALID_ARGUMENT), so isolation is the only way to keep sweeping."""
+    """One benchmark config in its OWN subprocess, so a config that runs
+    out of device memory cannot take the rest of the sweep with it."""
     import subprocess
 
     env = dict(os.environ, LEGIONSOLVERS_BENCH_JSON="1")
@@ -130,14 +132,14 @@ def discover_max_size(bw):
 def write_results(rows, maxsizes, bw, path):
     """Render the recorded benchmark tables (the analog of the reference's
     committed per-node scaling tables, bench_all_ls.py:365-494)."""
-    import jax
+    from legionsolvers_tpu.benchmark import card_line
 
-    dev = jax.devices()[0].device_kind
+    dev = next((r["device"] for r in rows if "device" in r), None)
     lines = [
-        "# Recorded single-chip benchmark results",
+        "# Recorded single-GPU benchmark results",
         "",
-        f"Device: {dev}; measured HBM stream roofline "
-        f"{bw/1e9:.0f} GB/s." if bw else f"Device: {dev}.",
+        f"Device: {dev}; card: {card_line()}; measured stream roofline "
+        f"{bw/1e9:.0f} GB/s." if bw else f"Device: {dev}; card: {card_line()}.",
         "",
         "Machine-generated by `scripts/bench_matrix.py` (matrix-free stencil "
         "operators, f32, fixed-iteration marginal timing — the "
@@ -163,7 +165,7 @@ def write_results(rows, maxsizes, bw, path):
     if maxsizes:
         lines += [
             "",
-            "## Max CG problem size per dim (one chip, f32)",
+            "## Max CG problem size per dim (one GPU, f32)",
             "",
             "| dim | stencil | max n | ms/iter | Gnnz/s |",
             "|---|---|---|---|---|",
@@ -188,16 +190,22 @@ def main():
     p.add_argument("--maxsize-only", action="store_true",
                    help="skip the 12-config matrix, run only the ladder")
     p.add_argument("--no-probe", action="store_true")
-    p.add_argument("--out", default=None, help="write RESULTS.md here")
+    p.add_argument("--out", default=None,
+                   help="write the results table (markdown) here")
     args = p.parse_args()
 
-    import jax
-
-    from legionsolvers_tpu.utils.timing import measure_stream_bandwidth
-
     bw = None
-    if jax.default_backend() == "tpu" and not args.no_probe:
-        bw = measure_stream_bandwidth()
+    if not args.no_probe:
+        import subprocess
+
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             "from legionsolvers_tpu.utils.timing import "
+             "measure_stream_bandwidth as m; print(m())"],
+            capture_output=True, text=True, check=True,
+            cwd=os.path.join(os.path.dirname(__file__), ".."),
+        )
+        bw = float(proc.stdout.strip().splitlines()[-1])
         print(f"[matrix] stream bandwidth {bw/1e9:.0f} GB/s", flush=True)
     _BW[0] = bw
 

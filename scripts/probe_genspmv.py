@@ -1,12 +1,11 @@
-"""On-chip benchmark of the routed-gather general-sparsity SpMV.
+"""GPU benchmark of the routed-gather general-sparsity SpMV.
 
-Builds the r4 verdict's acceptance matrix — random 8-nnz-per-row at
-n = 2^20, which RCM cannot band (bandwidth stays ~n) — routes it through
-the planner (reorder gate -> degree-sorted basis -> GeneralSpmvOperator),
-and measures matvec and CG-iteration marginal times.  Target: >= 1 Gnnz/s
-(the gather-ELL fallback measured 0.04 Gnnz/s on this exact matrix).
+Builds a random 8-nnz-per-row matrix at n = 2^20, which RCM cannot band
+(bandwidth stays ~n), routes it through the planner (reorder gate ->
+degree-sorted basis -> GeneralSpmvOperator), and measures matvec and
+CG-iteration marginal times.
 
-Usage: python scripts/probe_genspmv.py   (TPU; one device process only)
+Usage: python scripts/probe_genspmv.py   (one device process only)
 """
 
 from __future__ import annotations

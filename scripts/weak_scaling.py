@@ -7,10 +7,10 @@ Runs CG on the 2-D 5-point Laplacian over 1, 2, 4, ... shards with the
 problem size scaled proportionally (fixed work per shard), and reports
 ms/iteration and weak-scaling efficiency relative to the 1-shard run.
 
-On real multi-chip hardware, run one process per host with
-``initialize_distributed()``; on a single host this sweeps a virtual CPU
-device mesh (set ``--cpu-devices N``) to validate the scaling *semantics*
-(CPU timings are not meaningful as absolute numbers).
+On a multi-GPU host this sweeps the local devices; across hosts, run one
+process per host with ``initialize_distributed()``.  ``--cpu-devices N``
+sweeps a virtual CPU device mesh to validate the scaling *semantics* (CPU
+timings are not meaningful as absolute numbers).
 
 Usage:
   python scripts/weak_scaling.py --cpu-devices 8 --base-edge 512 --iters 50
@@ -79,10 +79,8 @@ def main() -> None:
         op = StencilOperator(
             (rows, cols), laplacian_stencil(2), partition=part, mesh=mesh,
             options=options,
-            # interpret-mode pallas on CPU would swamp the timings
-            use_pallas=jax.default_backend() != "cpu",
         )
-        gs = (rows, cols) if op.uses_pallas else None
+        gs = (rows, cols) if op.uses_grid_view else None
         rhs = PartitionedVector(
             "rhs", part, mesh=mesh, options=options, grid_shape=gs
         ).constant_fill(1.0)
@@ -111,7 +109,7 @@ def main() -> None:
         print(
             f"shards={S:3d} n={n:>12d} ({rows}x{cols}) "
             f"{sec*1e3:9.3f} ms/iter  weak-eff={100*eff:6.1f}%  "
-            f"pallas={op.uses_pallas}"
+            f"{jax.devices()[0].device_kind}"
         )
 
 

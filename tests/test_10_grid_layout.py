@@ -1,7 +1,7 @@
-"""Grid-native vector layout + fused matvec_dot tests (f32, Pallas kernel in
-interpret mode on CPU).  The grid layout stores 2-D stencil problems as 2-D
-arrays sharded over the leading axis, eliminating relayout copies at kernel
-boundaries; results must be identical to the flat layout."""
+"""Grid-native vector layout + fused matvec_dot tests (f32).  The grid
+layout stores 2-D stencil problems as 2-D arrays sharded over the leading
+axis, eliminating relayout copies at pass boundaries; results must be
+identical to the flat layout."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,8 +27,8 @@ def build(ng, pieces, mesh, grid):
         (ng, ng), laplacian_stencil(2), partition=part, mesh=mesh, options=F32
     )
     gs = (ng, ng) if grid else None
-    if grid and not op.uses_pallas:
-        pytest.skip("pallas view unavailable for this geometry")
+    if grid and not op.uses_grid_view:
+        pytest.skip("grid view unavailable for this geometry")
     rhs = PartitionedVector("rhs", part, mesh=mesh, options=F32, grid_shape=gs)
     rhs.constant_fill(1.0)
     sol = PartitionedVector("sol", part, mesh=mesh, options=F32, grid_shape=gs)
@@ -42,12 +42,11 @@ def build(ng, pieces, mesh, grid):
 
 @pytest.mark.parametrize("pieces,use_mesh", [(1, False), (4, True)])
 def test_grid_cg_matches_flat(pieces, use_mesh, mesh4):
-    ng = 32  # C=32 not a multiple of 128 -> no pallas; use 128 instead
     ng = 128
     mesh = mesh4 if use_mesh else None
     p_flat, _ = build(ng, pieces, mesh, grid=False)
     p_grid, op = build(ng, pieces, mesh, grid=True)
-    assert op.uses_pallas
+    assert op.uses_grid_view
     h_flat = np.asarray(CGSolver(p_flat).solve(8))
     h_grid = np.asarray(CGSolver(p_grid).solve(8))
     # f32: fused per-shard dot partials reduce in a different order than the

@@ -1,8 +1,9 @@
-"""Fused-CG Pallas path tests (interpret mode on CPU).
+"""Fused-CG path tests.
 
-The fused path runs each CG iteration as two Pallas passes (xpay+pq, then
-the x/r update with A p formed in VMEM only) — 32 B/unknown/iteration vs 48
-for the classic schedule.  It must be an exact continuation of standard CG:
+The fused path runs each CG iteration as two passes (xpay+pq, then the x/r
+update re-deriving A p) — 32 B/unknown/iteration vs 48 for the classic
+schedule — or, for 2-D stencils the s-step kernel takes, one pass per two
+iterations.  It must be an exact continuation of standard CG:
 same residual² trajectory and solution as the generic planner path (the
 reference's iteration structure, CGSolver.hpp:46-55), both unsharded and
 sharded, and composable with prior plain step() calls.
@@ -70,7 +71,7 @@ def test_fused_cg_matches_generic_2d(pieces, use_mesh, mesh4):
 
 def test_fused_cg_flat_layout_1d(mesh4):
     """1-D problems reach the fused path through the flat-offset
-    decomposition onto the 2-D kernel."""
+    decomposition onto the 2-D passes."""
     hg, xg, hf, xf = solve_pair((128 * 64,), 4, mesh4, 6, grid=False)
     np.testing.assert_allclose(hf, hg, rtol=1e-4)
     np.testing.assert_allclose(xf, xg, rtol=1e-3, atol=1e-6)

@@ -1,9 +1,9 @@
-"""3-D plane-streaming Pallas stencil kernel (ops/pallas/stencil3d.py).
+"""3-D grid-view stencil passes (ops/grid3d.py).
 
 Covers the reference benchmark's 3-D cases — 7-point and 27-point Laplacians
 (reference: test/BenchmarkStencil.cpp:24-137) — against the dense COO
 reference, single-piece and sharded, plus the fused-CG runner vs the
-linearized fallback path.  Runs in Pallas interpret mode on the CPU mesh.
+linearized path.
 """
 
 import numpy as np
@@ -22,7 +22,7 @@ from legionsolvers_tpu import (
 from legionsolvers_tpu.problems.stencil import stencil_coo_arrays
 
 F32 = SolverOptions(entry_dtype=jnp.float32)
-SHAPE = (8, 8, 128)  # smallest Z the kernel supports (Z % 128 == 0)
+SHAPE = (8, 8, 24)  # any Y, Z: the grid view has no tiling constraint
 
 
 def _dense_ref(shape, st, x):
@@ -41,7 +41,7 @@ def test_pallas3d_matvec_single_piece(dim_sel):
 
     op = StencilOperator(SHAPE, st, partition=BlockPartition(n, 1),
                          mesh=None, options=F32)
-    assert op.uses_pallas and op._view["kind"] == "3d"
+    assert op.uses_grid_view and op._view["kind"] == "3d"
     y = np.asarray(op.matvec(jnp.asarray(x)))
     assert np.abs(y - y_ref).max() / np.abs(y_ref).max() < 1e-5
 
@@ -60,7 +60,7 @@ def test_pallas3d_matvec_sharded(dim_sel, mesh4):
 
     op = StencilOperator(SHAPE, st, partition=BlockPartition(n, 4),
                          mesh=mesh4, options=F32)
-    assert op.uses_pallas and op._view["kind"] == "3d"
+    assert op.uses_grid_view and op._view["kind"] == "3d"
     y = np.asarray(op.matvec(jnp.asarray(x)))
     assert np.abs(y - y_ref).max() / np.abs(y_ref).max() < 1e-5
 
@@ -71,10 +71,10 @@ def test_pallas3d_fused_cg_matches_linearized(dim_sel, mesh4):
     n = int(np.prod(SHAPE))
     part = BlockPartition(n, 4)
 
-    def run(use_pallas):
+    def run(grid_view):
         op = StencilOperator(SHAPE, st, partition=part, mesh=mesh4,
-                             options=F32, use_pallas=use_pallas)
-        gs = SHAPE if use_pallas else None
+                             options=F32, grid_view=grid_view)
+        gs = SHAPE if grid_view else None
         rhs = PartitionedVector("rhs", part, mesh=mesh4, options=F32,
                                 grid_shape=gs).constant_fill(1.0)
         sol = PartitionedVector("sol", part, mesh=mesh4, options=F32,
@@ -84,7 +84,7 @@ def test_pallas3d_fused_cg_matches_linearized(dim_sel, mesh4):
         planner.add_rhs_vector(rhs)
         planner.add_operator(op, 0, 0)
         solver = CGSolver(planner)
-        if use_pallas:
+        if grid_view:
             assert solver._make_fused_runner(8) is not None
         return np.asarray(solver.solve(8), dtype=np.float64)
 
@@ -94,7 +94,7 @@ def test_pallas3d_fused_cg_matches_linearized(dim_sel, mesh4):
 
 
 def test_fused3d_xpay_pq_matches_classic(mesh4):
-    """The dual-stream xpay_pq 3-D schedule (32 B/unknown) vs classic CG,
+    """The xpay_pq + update 3-D schedule (32 B/unknown) vs classic CG,
     unsharded and sharded."""
     import numpy as np
 
@@ -107,20 +107,18 @@ def test_fused3d_xpay_pq_matches_classic(mesh4):
         StencilOperator,
         laplacian_stencil,
     )
-    from legionsolvers_tpu.ops.pallas.stencil3d import supports3d_xpay_pq
     from legionsolvers_tpu.utils.roofline import solver_bytes_per_iteration
 
     F32 = SolverOptions(entry_dtype=jnp.float32)
-    shape = (16, 32, 128)
+    shape = (16, 32, 40)
     n = int(np.prod(shape))
-    assert supports3d_xpay_pq(32, 128)
 
     def build(pieces, mesh):
         part = BlockPartition(n, pieces)
         op = StencilOperator(shape, laplacian_stencil(3), partition=part,
                              mesh=mesh, options=F32)
         pl_ = SquarePlanner(mesh=mesh, options=F32)
-        gs = shape if op.uses_pallas else None
+        gs = shape if op.uses_grid_view else None
         pl_.add_sol_vector(PartitionedVector(
             "s", part, mesh=mesh, options=F32, grid_shape=gs).zero_fill())
         pl_.add_rhs_vector(PartitionedVector(
@@ -133,7 +131,7 @@ def test_fused3d_xpay_pq_matches_classic(mesh4):
         p1, op1 = build(pieces, mesh)
         s1 = CGSolver(p1)
         _, sched = solver_bytes_per_iteration(s1, n)
-        assert sched == "fused3d_xp"
+        assert sched == "fused3d"
         h1 = np.asarray(s1.solve(8))
         p2, _ = build(pieces, mesh)
         s2 = CGSolver(p2)

@@ -169,7 +169,7 @@ def test_benchmark_block_smoke(capsys):
     """benchmark.py --block runs end-to-end on CPU (reference stress setup)."""
     from legionsolvers_tpu.benchmark import main
 
-    main(["-dim", "1", "-nx", "256", "-vp", "1", "-it", "10", "--block",
+    main(["-dim", "1", "-nx", "256", "-vp", "1", "-it", "1000", "--block",
           "--dtype", "float64"])
     out = capsys.readouterr().out
     assert "ms per iteration" in out
@@ -184,7 +184,7 @@ def test_benchmark_cg_donating_smoke(capsys):
     from legionsolvers_tpu.benchmark import main
 
     main(["-dim", "2", "-nx", "16", "-ny", "128", "-solver", "1",
-          "-vp", "1", "-it", "10", "--dtype", "float32"])
+          "-vp", "1", "-it", "200", "--dtype", "float32"])
     out = capsys.readouterr().out
     assert "ms per iteration" in out
 
@@ -197,6 +197,6 @@ def test_benchmark_other_solvers_smoke(capsys, solver):
     from legionsolvers_tpu.benchmark import main
 
     main(["-dim", "1", "-nx", "256", "-solver", str(solver), "-vp", "1",
-          "-it", "6", "--dtype", "float64"])
+          "-it", "1000", "--dtype", "float64"])
     out = capsys.readouterr().out
     assert "ms per iteration" in out

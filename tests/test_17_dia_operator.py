@@ -1,10 +1,8 @@
 """Explicit-DIA operator tests (the accelerated explicit-matrix path).
 
 The reference's explicit matrices run through cuSPARSE SpMV (reference:
-CSRMatrixTasks.cu:14-156); here they auto-upgrade to per-diagonal coefficient
-arrays driving the variable-coefficient stencil kernel
-(parallel/dia_op.py + ops/pallas/dia2d.py; interpret mode on CPU).  These
-tests pin: DIA matvec == the jnp ELL RowPartitionedMatrix path bit-for-bit
+CSRMatrixTasks.cu:14-156); here banded ones auto-upgrade to per-diagonal
+coefficient arrays (parallel/dia_op.py).  These tests pin: DIA matvec == the jnp ELL RowPartitionedMatrix path bit-for-bit
 on the same inputs, golden CG trajectories unchanged through the planner
 auto-upgrade, rmatvec adjoint, fp64 fallback, and padding.
 """
@@ -55,13 +53,13 @@ def test_dia_matches_ell_bitwise(shape, pieces, mesh4):
 
 
 def test_dia_f32_pallas_interpret(mesh4):
-    """f32 path (Pallas view active, interpret mode on CPU) vs dense oracle."""
-    shape = (32, 128)  # C=128 divides the block; Br=8 per shard at 4 pieces
+    """f32 sharded DIA matvec_dot vs dense oracle."""
+    shape = (32, 128)
     n = 32 * 128
     A = create_coo_stencil_matrix(shape, laplacian_stencil(2), options=F32)
     part = BlockPartition(n, 4)
     dia = DiaOperator(A, partition=part, mesh=mesh4, options=F32)
-    assert dia.uses_pallas, "expected the Pallas DIA view on this geometry"
+    assert not dia._wide_band and len(dia.flat_offsets) == 5
     rng = np.random.default_rng(1)
     xh = rng.random(n).astype(np.float32)
     x = PartitionedVector.from_array("x", xh, part, mesh=mesh4, options=F32)
@@ -167,7 +165,7 @@ def test_dia_wide_band_gather(mesh8):
     A = create_coo_stencil_matrix(shape, laplacian_stencil(2), options=F64)
     part = BlockPartition(n, 8)
     dia = DiaOperator(A, partition=part, mesh=mesh8, options=F64)
-    assert dia._wide_band and not dia.uses_pallas
+    assert dia._wide_band
     rng = np.random.default_rng(3)
     xh = rng.random(n)
     x = PartitionedVector.from_array("x", xh, part, mesh=mesh8, options=F64)

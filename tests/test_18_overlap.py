@@ -1,13 +1,14 @@
 """Halo-exchange / compute overlap tests (parallel/overlap.py).
 
-The sharded Pallas matvec/fused-CG paths run the main kernel pass with ZERO
-halos — so the pass has no data dependence on the iteration's ppermutes and
-XLA's async collective scheduler can overlap the exchange with the O(n)
-compute (the analog of Legion flying ghost copies during leaf tasks,
-reference: COOMatrix.cpp:172-188) — then patch the omitted edge terms.
-These tests pin (a) numerical agreement with the dense oracle and the
-unsharded path, and (b) the dataflow-independence property itself, by
-walking the jaxpr: no pallas_call may consume a ppermute result.
+The sharded grid-view matvec / fused-CG / s-step paths run the main pass
+with ZERO halos — so the pass has no data dependence on the iteration's
+ppermutes and XLA's async collective scheduler can overlap the exchange
+with the O(n) compute (the analog of Legion flying ghost copies during leaf
+tasks, reference: COOMatrix.cpp:172-188) — then patch the omitted edge
+terms.  These tests pin (a) numerical agreement with the dense oracle and
+the unsharded path, and (b) the dataflow-independence property itself, by
+walking the jaxpr: no pass (a named jit of ops/grid2d.py or the s-step
+Triton pallas_call) may consume a ppermute result.
 """
 
 import jax
@@ -41,27 +42,33 @@ def _collect_eqns(jaxpr, out):
     return out
 
 
-def assert_pallas_independent_of_ppermute(fn, *args):
-    """No pallas_call input may be (transitively trivially) a ppermute
-    output: the kernel pass must be schedulable concurrently with the
-    exchange."""
+def _is_pass(eqn, kind):
+    if kind == "pallas":
+        return eqn.primitive.name == "pallas_call"
+    name = str(eqn.params.get("name", ""))
+    return eqn.primitive.name in ("jit", "pjit") and name.startswith(kind)
+
+
+def assert_pallas_independent_of_ppermute(fn, *args, kind="grid2d_"):
+    """No input of a pass (``kind``: a prefix of the jitted pass names of
+    ops/grid2d.py, or "pallas" for the Triton kernel) may be a ppermute
+    output: the pass must be schedulable concurrently with the exchange."""
     jaxpr = jax.make_jaxpr(fn)(*args)
     eqns = _collect_eqns(jaxpr.jaxpr, [])
     perm_outs = set()
-    pallas_eqns = []
+    pass_eqns = []
     for eqn in eqns:
-        name = eqn.primitive.name
-        if name == "ppermute":
+        if eqn.primitive.name == "ppermute":
             perm_outs.update(map(id, eqn.outvars))
-        elif name == "pallas_call":
-            pallas_eqns.append(eqn)
-    assert pallas_eqns, "expected at least one pallas_call in the jaxpr"
+        elif _is_pass(eqn, kind):
+            pass_eqns.append(eqn)
+    assert pass_eqns, f"expected at least one {kind} pass in the jaxpr"
     assert perm_outs, "expected ppermutes in the sharded jaxpr"
-    for eqn in pallas_eqns:
+    for eqn in pass_eqns:
         for v in eqn.invars:
             assert id(v) not in perm_outs, (
-                "pallas_call consumes a ppermute output: the kernel pass "
-                "cannot overlap the halo exchange"
+                "a pass consumes a ppermute output: it cannot overlap the "
+                "halo exchange"
             )
 
 
@@ -73,13 +80,13 @@ def dense_oracle(shape):
 
 def test_stencil_matvec_overlap_agreement(mesh4):
     """Sharded (zero-halo + fixup) f32 matvec == dense oracle and == the
-    single-piece Pallas result."""
+    single-piece result."""
     shape = (32, 128)
     n = 32 * 128
     part = BlockPartition(n, 4)
     op = StencilOperator(shape, laplacian_stencil(2), partition=part,
                          mesh=mesh4, options=F32)
-    assert op.uses_pallas
+    assert op.uses_grid_view
     op1 = StencilOperator(shape, laplacian_stencil(2),
                           partition=BlockPartition(n, 1), mesh=None,
                           options=F32)
@@ -113,19 +120,41 @@ def test_stencil_matvec_dataflow_independence(mesh4):
 
 
 def test_dia_matvec_overlap(mesh4):
+    """Sharded DIA matvec (ring halo exchange of the band edges) == dense
+    oracle and == the single-piece result."""
     shape = (32, 128)
     n = 32 * 128
     A = create_coo_stencil_matrix(shape, laplacian_stencil(2), options=F32)
     part = BlockPartition(n, 4)
     dia = DiaOperator(A, partition=part, mesh=mesh4, options=F32)
-    assert dia.uses_pallas
+    dia1 = DiaOperator(A, partition=BlockPartition(n, 1), mesh=None,
+                       options=F32)
     rng = np.random.default_rng(1)
     xh = rng.random(n).astype(np.float32)
     x = PartitionedVector.from_array("x", xh, part, mesh=mesh4, options=F32)
     y = np.asarray(dia.matvec(x.data))
     np.testing.assert_allclose(y, dense_oracle(shape) @ xh, rtol=1e-4,
                                atol=1e-6)
-    assert_pallas_independent_of_ppermute(dia._fn(False), x.data)
+    np.testing.assert_allclose(y, np.asarray(dia1.matvec(jnp.asarray(xh))),
+                               rtol=1e-6, atol=1e-7)
+
+
+def test_sstep_pass_dataflow_independence(mesh4):
+    """The sharded s-step runner's Triton pass (and its gram2 bootstrap)
+    consume no ppermute output: the 4-row halo exchange flies under it."""
+    shape = (64, 128)
+    n = 64 * 128
+    part = BlockPartition(n, 4)
+    op = StencilOperator(shape, laplacian_stencil(2), partition=part,
+                         mesh=mesh4, options=F32)
+    assert op.step2_eligible
+    runner = op.make_fused_cg_runner(4)
+    x = PartitionedVector("x", part, mesh=mesh4, options=F32,
+                          grid_shape=shape).constant_fill(1.0).data
+    assert_pallas_independent_of_ppermute(
+        lambda a, b, c: runner(a, b, c, jnp.float32(1.0))[3], x, x, x,
+        kind="pallas",
+    )
 
 
 def test_fused_cg_overlap_agreement(mesh4):

@@ -1,10 +1,10 @@
-"""s-step fused CG tests (one Pallas pass per TWO iterations; interpret
-mode on CPU).
+"""s-step fused CG tests (one kernel pass per TWO iterations; the Triton
+kernel runs in interpret mode on CPU).
 
 The s=2 schedule derives both iterations' coefficients from the Gram matrix
 of {r, Ar, p, Ap, A^2p} emitted by the previous pass (12 B/unknown/iter vs
-32 for the 1-step fused schedule) — the TPU-native completion of the
-reference's own fused double-CG sketch (reference: scripts/krylov.py:34-93).
+32 for the 1-step fused schedule) — the completion of the reference's own
+fused double-CG sketch (reference: scripts/krylov.py:34-93).
 It is algebraically identical to classic CG, so trajectories must agree to
 f32 rounding; the kernel-level Gram and two-iteration update are checked
 against a dense numpy oracle exactly.
@@ -25,11 +25,10 @@ from legionsolvers_tpu import (
     StencilOperator,
     laplacian_stencil,
 )
-from legionsolvers_tpu.ops.pallas.stencil2d import (
-    GRAM_NAMES,
-    cg2_coeffs,
-    grid2d_cg_gram2,
-    grid2d_cg_step2,
+from legionsolvers_tpu.ops.grid2d import GRAM_NAMES, cg2_coeffs
+from legionsolvers_tpu.ops.pallas.sstep2d import (
+    gram2 as grid2d_cg_gram2,
+    step2 as grid2d_cg_step2,
 )
 
 F32 = SolverOptions(entry_dtype=jnp.float32)
@@ -77,7 +76,7 @@ def test_gram2_matches_dense_oracle():
     p = rng.standard_normal((32, 128)).astype(np.float32)
     g = np.asarray(grid2d_cg_gram2(
         jnp.asarray(r), jnp.asarray(p),
-        offsets=OFFS, values=VALS, interpret=True,
+        offsets=OFFS, values=VALS,
     ))
     Ap, Ar = apply_np(p), apply_np(r)
     A2p = apply_np(Ap)
@@ -98,7 +97,7 @@ def test_step2_matches_two_classic_iterations():
     x = rng.standard_normal((32, 128)).astype(np.float32)
     r = rng.standard_normal((32, 128)).astype(np.float32)
     p = rng.standard_normal((32, 128)).astype(np.float32)
-    kw = dict(offsets=OFFS, values=VALS, interpret=True)
+    kw = dict(offsets=OFFS, values=VALS)
 
     g = grid2d_cg_gram2(jnp.asarray(r), jnp.asarray(p), **kw)
     coef, rr1, rr2 = cg2_coeffs(g)
@@ -232,10 +231,10 @@ def build_sharded(shape, pieces, mesh):
         options=F32,
     )
     rhs = PartitionedVector("rhs", part, mesh=mesh, options=F32,
-                            grid_shape=shape if op.uses_pallas else None)
+                            grid_shape=shape if op.uses_grid_view else None)
     rhs.constant_fill(1.0)
     sol = PartitionedVector("sol", part, mesh=mesh, options=F32,
-                            grid_shape=shape if op.uses_pallas else None)
+                            grid_shape=shape if op.uses_grid_view else None)
     sol.zero_fill()
     planner = SquarePlanner(mesh=mesh, options=F32)
     planner.add_sol_vector(sol)

@@ -1,21 +1,16 @@
-"""Fused BiCGStab Pallas passes (ops/pallas/bicgstab2d.py): kernel-level
-agreement with a dense fp64 oracle of the reference recurrence
-(BiCGStabSolver.hpp:64-82), interpret mode on CPU."""
+"""Fused BiCGStab passes (ops/grid2d.py bicg_*): pass-level agreement with a
+dense fp64 oracle of the reference recurrence (BiCGStabSolver.hpp:64-82),
+and the fused runners against the planner transcription."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from legionsolvers_tpu.ops.pallas.bicgstab2d import (
-    bicg_pv,
-    bicg_st,
-    bicg_update,
-    bicgstab_supported,
-)
+from legionsolvers_tpu.ops.grid2d import bicg_pv, bicg_st, bicg_update
 
 OFFS = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
 VALS = (4.0, -1.0, -1.0, -1.0, -1.0)
-KW = dict(offsets=OFFS, values=VALS, interpret=True)
+KW = dict(offsets=OFFS, values=VALS)
 
 
 def apply_np(v):
@@ -40,9 +35,23 @@ def state():
             for k in ("x", "r", "p", "v", "rt")}
 
 
-def test_supported():
-    assert bicgstab_supported(4096, 4096, OFFS)
-    assert not bicgstab_supported(4096, 100, OFFS)
+def test_supported(mesh4):
+    """Any 2-D grid view runs the fused passes (no width constraint);
+    sharded blocks need >= 16 rows for the edge fixups; 1-D blocks too
+    small to fold into [rows, 128] have no grid view."""
+    from legionsolvers_tpu import BlockPartition, StencilOperator
+    from legionsolvers_tpu import laplacian_stencil as lap
+
+    def op(shape, pieces, mesh=None):
+        n = int(np.prod(shape))
+        return StencilOperator(shape, lap(len(shape)),
+                               partition=BlockPartition(n, pieces), mesh=mesh)
+
+    assert op((64, 100), 1).supports_fused_bicgstab
+    assert op((64, 128), 4, mesh4).supports_fused_bicgstab
+    assert not op((32, 128), 4, mesh4).supports_fused_bicgstab
+    assert op((4096,), 1).supports_fused_bicgstab
+    assert not op((100,), 1).supports_fused_bicgstab
 
 
 def test_pv_oracle(state):
@@ -108,7 +117,7 @@ def build_sys(shape, no_fused=False):
         op = StencilOperator(shape, laplacian_stencil(2), partition=part,
                              mesh=None, options=F32)
         planner = SquarePlanner(mesh=None, options=F32)
-        gs = shape if op.uses_pallas else None
+        gs = shape if op.uses_grid_view else None
         planner.add_sol_vector(PartitionedVector(
             "s", part, options=F32, grid_shape=gs).zero_fill())
         planner.add_rhs_vector(PartitionedVector(
@@ -163,7 +172,7 @@ def test_fused_is_continuation():
 
 
 def test_fused_1d_flat_decomposition():
-    """1-D stencils map onto the 2-D kernels via the flat-offset
+    """1-D stencils map onto the 2-D passes via the flat-offset
     decomposition (wrap terms take the roll+mask path); fused vs
     transcription trajectories must agree."""
     import os
@@ -199,7 +208,7 @@ def test_fused_1d_flat_decomposition():
             os.environ.pop("LEGIONSOLVERS_NO_FUSED_BICGSTAB", None)
 
     p1, op1, s1 = build(False)
-    assert op1.uses_pallas and op1.supports_fused_bicgstab
+    assert op1.uses_grid_view and op1.supports_fused_bicgstab
     h1 = np.asarray(s1.solve(8))
     p2, op2, s2 = build(True)
     h2 = np.asarray(s2.solve(8))
@@ -228,7 +237,7 @@ def build_sys_sharded(shape, pieces, mesh, no_fused=False):
         op = StencilOperator(shape, laplacian_stencil(2), partition=part,
                              mesh=mesh, options=F32)
         planner = SquarePlanner(mesh=mesh, options=F32)
-        gs = shape if op.uses_pallas else None
+        gs = shape if op.uses_grid_view else None
         planner.add_sol_vector(PartitionedVector(
             "s", part, mesh=mesh, options=F32, grid_shape=gs).zero_fill())
         planner.add_rhs_vector(PartitionedVector(
@@ -305,7 +314,7 @@ def test_fused_3d_matches_transcription():
             op = StencilOperator(shape, laplacian_stencil(3),
                                  partition=part, mesh=None, options=F32)
             pl_ = SquarePlanner(mesh=None, options=F32)
-            gs = shape if op.uses_pallas else None
+            gs = shape if op.uses_grid_view else None
             pl_.add_sol_vector(PartitionedVector(
                 "s", part, options=F32, grid_shape=gs).zero_fill())
             pl_.add_rhs_vector(PartitionedVector(

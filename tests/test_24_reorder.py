@@ -1,13 +1,12 @@
 """Reordered-basis solves (RCM) + windowed-ELL operator.
 
-The round-3 verdict's top gap: explicit matrices that fail the DIA gate fell
-to an XLA-gather ELL ~480x slower than the banded path, where the
-reference's cuSPARSE SpMV has no cliff (reference: CSRMatrixTasks.cu:14-156).
-The TPU answer is build-time RCM + solving in the permuted basis
-(parallel/reorder.py) with the windowed-gather kernel for scattered-in-band
-sparsity (parallel/winell_op.py).  These tests pin:
+Explicit matrices that fail the DIA gate take build-time RCM + solving in
+the permuted basis (parallel/reorder.py) with the windowed-ELL layout for
+scattered-in-band sparsity (parallel/winell_op.py); the reference runs all
+sparsity through cuSPARSE (reference: CSRMatrixTasks.cu:14-156).  These
+tests pin:
 
-* windowed-ELL matvec/rmatvec against a scipy oracle (interpret mode);
+* windowed-ELL matvec/rmatvec against a scipy oracle;
 * Krylov invariance: the reordered solve's residual history and solution
   match the unpermuted solve;
 * eager step() outside the basis stays correct (per-call permutation);

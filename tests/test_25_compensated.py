@@ -1,17 +1,16 @@
-"""Compensated (two-float) reductions — the TPU-native f64 stand-in.
+"""Compensated (two-float) reductions for f32 solves.
 
 The reference runs f64 end-to-end (reference: test_all.py:130-133 goldens on
-double; V100 CUDA leaf tasks in double); the v5e has no f64, and round 3
-measured the consequence: rho-class dots at large n fall below the f32
-cancellation noise floor and the trajectory becomes reduction-order chaotic
-(PROFILE_r03.md).  ops/ddsum.py carries those reductions as two-float
-(hi, lo) pairs instead.  These tests pin:
+double).  In f32, rho-class dots at large n fall below the f32 cancellation
+noise floor and the trajectory becomes reduction-order chaotic;
+ops/ddsum.py carries those reductions as two-float (hi, lo) pairs instead.
+These tests pin:
 
 * EFT building blocks are exact (two_sum / two_prod identities in f64);
 * dd_dot reaches ~2x-precision on catastrophically cancelling dots where
   plain f32 loses every digit;
-* the compensated fused BiCGStab kernels (interpret mode) reproduce f64
-  oracle dots to f32-representation accuracy;
+* the compensated fused BiCGStab passes reproduce f64 oracle dots to
+  f32-representation accuracy;
 * the solver option wires through (planner.dot + fused runner).
 """
 
@@ -30,7 +29,7 @@ from legionsolvers_tpu.ops.ddsum import (
 
 OFFS = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
 VALS = (4.0, -1.0, -1.0, -1.0, -1.0)
-KW = dict(offsets=OFFS, values=VALS, interpret=True)
+KW = dict(offsets=OFFS, values=VALS)
 
 
 def test_eft_identities_exact():
@@ -86,7 +85,7 @@ def test_dd_dot_odd_sizes():
 
 
 def test_compensated_kernel_dots_match_f64():
-    from legionsolvers_tpu.ops.pallas.bicgstab2d import bicg_st, bicg_update
+    from legionsolvers_tpu.ops.grid2d import bicg_st, bicg_update
 
     rng = np.random.default_rng(7)
     shp = (32, 128)
@@ -154,7 +153,7 @@ def _solve(shape, iters, compensated):
     op = StencilOperator(shape, laplacian_stencil(2), partition=part,
                          mesh=None, options=F)
     pl_ = SquarePlanner(mesh=None, options=F)
-    gs = shape if op.uses_pallas else None
+    gs = shape if op.uses_grid_view else None
     pl_.add_sol_vector(PartitionedVector(
         "s", part, options=F, grid_shape=gs).zero_fill())
     pl_.add_rhs_vector(PartitionedVector(

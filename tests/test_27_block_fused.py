@@ -1,17 +1,17 @@
 """Fused multi-space (block-system) schedules — parallel/block_fused.py.
 
-The r4 verdict's top item: the reference's benchmark stress config (2
-spaces, matrix registered twice, BenchmarkStencil.cpp:201-207) fell off the
-Pallas kernel layer to the 48 B/unknown generic path.  These tests pin the
-new per-space-phases block runners against the planner transcription
+The reference's benchmark stress config (2 spaces, matrix registered twice,
+BenchmarkStencil.cpp:201-207) runs the per-space fused phases.  These tests
+pin the per-space-phases block runners against the planner transcription
 (LEGIONSOLVERS_NO_BLOCK_FUSED=1 forces the old path) with DISTINCT rhs per
 space — identical rhs would mask scalar-combination bugs, because for
 diag(A, A) with b0 == b1 the global and per-space coefficient ratios
 coincide.
 
-f64 systems take the jnp phases (exact-trajectory agreement); f32 2-D/3-D
-grids take the interpret-mode Pallas phases (s-step, two-pass, BiCGStab
-three-pass), sharded variants run on the virtual CPU mesh.
+f64 systems take the classic phases (exact-trajectory agreement); f32
+2-D/3-D grids take the fused phases (s-step through the Triton kernel in
+interpret mode, two-pass, BiCGStab three-pass), sharded variants run on the
+virtual CPU mesh.
 """
 
 import os
@@ -45,7 +45,7 @@ def build_grid_block_planner(shape, pieces, mesh, num_spaces=2, seed=5,
         offs = [(o, v + (shift if all(c == 0 for c in o) else 0.0))
                 for o, v in offs]
     op = StencilOperator(shape, offs, partition=part, mesh=mesh, options=F32)
-    assert op.uses_pallas, "geometry must hit the Pallas view"
+    assert op.uses_grid_view, "geometry must hit the grid view"
     rng = np.random.default_rng(seed)
     planner = SquarePlanner(mesh=mesh, options=F32)
     for i in range(num_spaces):

@@ -1,13 +1,11 @@
 """General-sparsity SpMV: routed-gather pipeline (parallel/genspmv.py).
 
-The r4 verdict's last capability hole vs the reference's pattern-agnostic
-cuSPARSE (CSRMatrixTasks.cu:14-156): RCM-resistant matrices fell to the
-scalarized XLA gather (0.04-0.11 Gnnz/s measured).  The routed pipeline
-decomposes the arbitrary gather into host-planned radix hops of blocked
-lane gathers (ops/pallas/rowperm.py) and measured 1.29 Gnnz/s on chip at
-random 8-nnz/row, n = 1M (32x).  These tests pin:
+The reference's SpMV is pattern-agnostic cuSPARSE (CSRMatrixTasks.cu:14-156).
+For RCM-resistant matrices the routed pipeline decomposes the arbitrary
+gather into host-planned radix hops of blocked gathers (ops/gather.py).
+These tests pin:
 
-* the blockperm kernel against direct indexing (all three hop geometries);
+* the blocked gather against direct indexing (all three hop geometries);
 * operator matvec/rmatvec against scipy on RCM-resistant randoms,
   including the capped-W2 + overflow-splice path;
 * planner auto-routing: an RCM-resistant matrix lands on
@@ -47,7 +45,7 @@ def _random_coo(n, avg, seed):
 
 
 def test_blockperm_kernel_geometries():
-    from legionsolvers_tpu.ops.pallas.rowperm import blockperm_gather
+    from legionsolvers_tpu.ops.gather import blockperm_gather
 
     rng = np.random.default_rng(0)
     cases = [
@@ -64,7 +62,7 @@ def test_blockperm_kernel_geometries():
         tab = mk_tab(brk)
         out = np.asarray(blockperm_gather(
             jnp.asarray(src), jnp.asarray(idx), block_rows=brk,
-            src_block_rows=srb, w0_table=tab, w_rows=w, interpret=True,
+            src_block_rows=srb, w0_table=tab, w_rows=w,
         ))
         base = (np.arange(RD) // brk) * srb + np.asarray(tab)[
             np.arange(RD) % brk
